@@ -8,7 +8,9 @@ under ``csrc/``, built with nvcc at first use. This package imports neither
 JAX nor anything of ``ladder_tpu``.
 
 Ported so far: serving the CelebA-128 model family (``serving.InferenceEngine``,
-``python -m ladder_tpu_torch.serve``). ROADMAP.md lists what comes next.
+``python -m ladder_tpu_torch.serve``) and its joint train step
+(``training.step.make_train_step``, with the losses, the per-group TF1-style
+Adam and the schedules). ROADMAP.md lists what comes next.
 """
 
 __version__ = "0.1.0"

@@ -119,6 +119,16 @@ class LadderModel(nn.Module):
         """Codes [B, code_size] -> raw images [B,C,H,W] (float32)."""
         return self.decoder(z)
 
+    def decode_trunk(self, z):
+        """The decoder up to, not including, the final leaky_relu -> Conv_8
+        output stage: the input of ops/output_stage.fused_output_recon."""
+        return self.decoder(z, trunk_only=True)
+
+    def output_stage_params(self):
+        """(weight [Co, C], bias [Co]) of the Conv_8 head."""
+        conv = self.decoder.Conv_8
+        return conv.weight.reshape(conv.weight.shape[0], -1), conv.bias
+
     def inner_encode(self, z):
         return self.prior["inner_encoder"](z)
 
@@ -132,6 +142,18 @@ class LadderModel(nn.Module):
     def sigma_value(self):
         """|sigma_var|; the pixel-error floor is applied in the loss."""
         return self.sigma["sigma"].abs()
+
+    def inner_sigma_value(self):
+        """|inner_sigma|, clamped to [lb, ub] when it is trained. Written as
+        min(max(s, lb), ub): at a bound that halves the gradient, as
+        ``jnp.clip`` does in ``ladder_tpu`` (``torch.clamp`` would pass it
+        whole), and the configs start inner_sigma on its upper bound."""
+        s = self.inner_sigma["inner_sigma"].abs()
+        if self.config["TRAIN_inner_sigma"] == 1:
+            lb = s.new_tensor(self.config["inner_sigma_lb"])
+            ub = s.new_tensor(self.config["inner_sigma_ub"])
+            s = torch.minimum(torch.maximum(s, lb), ub)
+        return s
 
 
 def make_model(config, seed=0) -> LadderModel:

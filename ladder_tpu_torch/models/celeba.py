@@ -105,7 +105,11 @@ class CelebADecoder(nn.Module):
         for i, c in enumerate((h, h, h // 2, h // 4)):
             setattr(self, f"style_mod_{i}", StyleMod(h, c, dtype=dtype))
 
-    def forward(self, z):
+    def forward(self, z, trunk_only=False):
+        """trunk_only=True returns the input of the final leaky_relu ->
+        Conv_8 stage [B, h/4, 128, 128] (in the compute dtype) instead of
+        the image: the input of the fused output stage
+        (ops/output_stage.py)."""
         h = self.Dense_0.weight.shape[0]
         if self.dtype is not None:
             z = z.to(self.dtype)
@@ -130,6 +134,8 @@ class CelebADecoder(nn.Module):
         x = leaky_relu(self.Conv_5(x))
         # 32 -> 64 (style stage 3) -> 128
         x = in_style(self.Conv_6(x), 3)
-        x = leaky_relu(self.Conv_7(x))
+        x = self.Conv_7(x)
+        if trunk_only:
+            return x
         # decoded_6: 1x1 conv to 3 channels, linear (fp32 output)
-        return self.Conv_8(x).float()
+        return self.Conv_8(leaky_relu(x)).float()

@@ -1,1 +1,2 @@
-"""Image ops, distributions, and the norm-chain kernel with its plain version."""
+"""Image ops, distributions, and the hand-written kernels (norm chain, output
+stage, Adam) with their plain versions and their shared build helper."""

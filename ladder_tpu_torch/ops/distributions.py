@@ -1,4 +1,5 @@
-"""Distribution primitives of the serving path: diagonal-Gaussian sampling
+"""Distribution primitives of the serving path and the losses:
+diagonal-Gaussian sampling and log-density, mixtures of diagonal Gaussians,
 and full-covariance Gaussian mixtures (Cholesky log-prob + logsumexp,
 sampling).
 
@@ -29,6 +30,21 @@ def _randn(shape, generator, like):
 def sample_diag_gaussian(generator, mean, std):
     """Reparameterised sample from N(mean, diag(std^2))."""
     return mean + std * _randn(mean.shape, generator, mean)
+
+
+def diag_gaussian_logpdf(x, mean, std):
+    """log N(x; mean, diag(std^2)) summed over the last axis."""
+    z = (x - mean) / std
+    return -0.5 * (z * z + 2.0 * torch.log(std) + LOG_2PI).sum(-1)
+
+
+def diag_mixture_logpdf(x, weights, means, stds):
+    """log p(x) under a mixture of diagonal Gaussians (the vampPrior's
+    pseudo-input mixture). means, stds: [K,D]; x: [..., D]."""
+    comp = torch.stack([diag_gaussian_logpdf(x, means[k], stds[k])
+                        for k in range(means.shape[0])])          # [K, ...]
+    logw = torch.log(weights).reshape((-1,) + (1,) * (comp.dim() - 1))
+    return torch.logsumexp(comp + logw, dim=0)
 
 
 def mvn_full_logpdf(x, mean, chol):

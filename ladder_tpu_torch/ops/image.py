@@ -37,9 +37,12 @@ def _tf1_interp_matrix(in_size, out_size):
 
 @functools.lru_cache(maxsize=64)
 def _cached_matrix(in_size, out_size, device, dtype):
-    """The matrix as a tensor on ``device``, made once (read-only use)."""
-    return torch.tensor(_tf1_interp_matrix(in_size, out_size)).to(
-        device=device, dtype=dtype)
+    """The matrix as a tensor on ``device``, made once (read-only use). It
+    is made outside inference mode even when a serving call is the first to
+    ask: an inference tensor could not enter a later train step's graph."""
+    with torch.inference_mode(False):
+        return torch.tensor(_tf1_interp_matrix(in_size, out_size)).to(
+            device=device, dtype=dtype)
 
 
 def _matrix(in_size, out_size, like):

@@ -1,1 +1,2 @@
-"""Config, flax-checkpoint reading and the flax <-> torch weight bridge."""
+"""Config, device selection, flax-checkpoint reading and the flax <-> torch
+weight and train-state bridge."""

@@ -14,7 +14,10 @@ changes:
   VampPrior pseudo-inputs) keeps its name, shape and bytes.
 
 Both directions are exact (pure index permutations), so flax -> torch ->
-flax round-trips bit for bit. The mnist families' flattened dense inputs
+flax round-trips bit for bit. A train state ``{params, opt: {group: {m, v,
+t}}, step}`` crosses the same way (``flax_state_to_torch``,
+``torch_state_to_flax``): the moments of a kernel are laid out as the kernel
+is, so they take the same transposes and row permutations. The mnist families' flattened dense inputs
 (``models/mnist.py:42,88``) come with their port.
 """
 
@@ -105,6 +108,30 @@ def torch_to_flax(state):
             node = node.setdefault(p, {})
         node[name] = a.copy(order="C")
     return tree
+
+
+def flax_state_to_torch(state):
+    """Flax-layout train state {params, opt: {group: {m, v, t}}, step} ->
+    {params: flat, opt: {group: {m: flat, v: flat, t: int}}, step: int}.
+    A group's m and v are flax subtrees of the group's parameters."""
+    return dict(
+        params=flax_to_torch(state["params"]),
+        opt={name: dict(m=flax_to_torch(group["m"]),
+                        v=flax_to_torch(group["v"]), t=int(group["t"]))
+             for name, group in state["opt"].items()},
+        step=int(state["step"]))
+
+
+def torch_state_to_flax(state):
+    """The inverse of flax_state_to_torch; t and step become int32 scalars
+    as in ``ladder_tpu``'s state."""
+    return dict(
+        params=torch_to_flax(state["params"]),
+        opt={name: dict(m=torch_to_flax(group["m"]),
+                        v=torch_to_flax(group["v"]),
+                        t=np.asarray(group["t"], np.int32))
+             for name, group in state["opt"].items()},
+        step=np.asarray(state["step"], np.int32))
 
 
 def _to_numpy(v):

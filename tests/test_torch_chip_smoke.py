@@ -1,6 +1,7 @@
 """chip_smoke.py off the card: it refuses to run without CUDA, and its
-serving phase runs end to end on the CPU at a tiny width (the rehearsal of
-what it drives on the card, where the kernel launches are counted too)."""
+serving and training phases run end to end on the CPU at a tiny width (the
+rehearsal of what it drives on the card, where the kernel launches are
+counted too)."""
 
 import json
 
@@ -32,6 +33,70 @@ def test_serving_phase_rehearsal_on_cpu(tmp_path):
     lat = chip_smoke.path_latencies(run["engine"], run["x"][:4], repeats=1)
     assert set(lat) == {"encode", "reconstruct", "represent", "decode",
                         "decode_representation", "generate"}
+
+
+def test_training_phase_rehearsal_on_cpu(tmp_path):
+    import jax
+    from ladder_tpu.models.builder import make_model as jmake
+    from ladder_tpu_torch.ops.distributions import gmm_cholesky
+
+    cfg = tiny_celeba(tmp_path)
+    params = jax.tree.map(np.asarray, jmake(cfg).init(jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(0)
+    gm = dict(weights=torch.full((4,), 0.25),
+              means=torch.tensor(rng.standard_normal((4, 2)), dtype=torch.float32),
+              chols=gmm_cholesky(torch.stack([torch.eye(2) * 0.5] * 4)))
+    images = rng.random((4, 128, 128, 3)).astype(np.float32)
+    chip_smoke.reset_counters()
+    train = chip_smoke.drive_training(cfg, params, gm, images, "cpu",
+                                      steps=2, cpu_batch=2)
+    assert set(train) == {1, 2}
+    for mode, res in train.items():
+        assert len(res["step_ms"]) == 2 and len(res["loss_ae"]) == 2
+        assert res["state"]["step"] == 2
+        # CPU tensors never launch a kernel
+        assert not any(res["launches"].values())
+        assert res["metric_gap"] == 0.0 and res["param_gap_max_lr"] == 0.0
+    assert not any(chip_smoke.read_counters().values())
+
+
+@pytest.mark.parametrize("mode, want", [
+    (1, {"norm_chain_fwd": 16, "norm_chain_bwd": 4, "output_stage_fwd": 4,
+         "output_stage_bwd": 1, "adam_update": 4}),
+    (2, {"norm_chain_fwd": 4, "norm_chain_bwd": 4, "output_stage_fwd": 1,
+         "output_stage_bwd": 1, "adam_update": 4})])
+def test_expected_step_launches(tmp_path, mode, want):
+    cfg = tiny_celeba(tmp_path)
+    assert chip_smoke.expected_step_launches(cfg, mode, "cuda") == want
+    assert not any(chip_smoke.expected_step_launches(cfg, mode,
+                                                     "cpu").values())
+
+
+def test_kernel_entries_cover_the_five_kernels():
+    case = {"shape": [64, 128, 128, 128], "dtype": "float32",
+            "max_abs_err": 1e-6, "ms": 0.4, "plain_ms": 2.0,
+            "bound_ms": 0.17, "bound_by": "bytes"}
+    entries = [
+        chip_smoke.output_stage_entry("output_stage_fwd", "f:1", [case], 3),
+        chip_smoke.output_stage_entry(
+            "output_stage_bwd", "f:2",
+            [dict(case, ddec=True, ms=9.0), dict(case, ddec=False)], 1),
+        chip_smoke.adam_entry([dict(case, group="scalar", tensors=1,
+                                    elements=1),
+                               dict(case, group="ae", tensors=72,
+                                    elements=10)], 8)]
+    for entry in entries:
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in entry
+        assert entry["ms"] == 0.4 and entry["route"] == "cuda"
+        assert (chip_smoke.ROOT and
+                __import__("os").path.isfile(entry["source"]))
+    assert set(chip_smoke.kernel_counters()) == {
+        "norm_chain_fwd", "norm_chain_bwd", "output_stage_fwd",
+        "output_stage_bwd", "adam_update"}
+    json.dumps({"kernels": entries})
 
 
 def test_kernel_entry_has_the_contract_keys():

@@ -1,13 +1,14 @@
-"""The port's norm-chain op (ladder_tpu_torch/ops/norm_chain.py) against the
-JAX package's Pallas kernel (interpret mode on CPU) and its unfused
-reference. On CPU tensors the wrapper takes the plain version and never
-launches the CUDA kernel; the kernel itself is checked against the plain
-version on the card by chip_smoke.py."""
+"""The port's norm-chain op (ladder_tpu_torch/ops/norm_chain.py), forward
+and gradients, against the JAX package's Pallas kernels (interpret mode on
+CPU) and its unfused reference. On CPU tensors the wrapper takes the plain
+versions and never launches the CUDA kernels; the kernels themselves are
+checked against the plain versions on the card by chip_smoke.py."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import ladder_tpu.ops.pallas_kernels as pk
@@ -74,7 +75,8 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                                    torch.tensor(shift))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert nc.fused_instnorm_style_lrelu.launches == 0
-    assert nc._lib is None  # the CUDA library was never built or loaded
+    # the CUDA library was never built or loaded
+    assert nc.LIBRARY.loaded is None
 
 
 def test_plain_version_rounds_once():
@@ -103,9 +105,87 @@ def test_wrapper_rejects_bad_inputs(bad, err):
 
 
 def test_library_key_follows_source_and_flags(monkeypatch):
-    path = nc.library_path()
-    assert path.parent == nc.BUILD_DIR
+    from ladder_tpu_torch.ops._build import BUILD_DIR
+
+    path = nc.LIBRARY.path()
+    assert path.parent == BUILD_DIR
     assert path.name.startswith("libnorm_chain_") and path.suffix == ".so"
-    assert nc.library_path() == path  # stable for the same source and flags
-    monkeypatch.setattr(nc, "NVCC_FLAGS", nc.NVCC_FLAGS + ("-lineinfo",))
-    assert nc.library_path() != path
+    assert nc.LIBRARY.path() == path  # stable for the same source and flags
+    monkeypatch.setattr(nc.LIBRARY, "flags", nc.LIBRARY.flags + ("-lineinfo",))
+    assert nc.LIBRARY.path() != path
+
+
+def _port_grads(x, scale, shift, cot, dtype):
+    """Gradients of sum(y * cot) through the port's op, back in NHWC."""
+    xt = torch.tensor(x).permute(0, 3, 1, 2).contiguous().to(dtype)
+    st, ht = torch.tensor(scale).to(dtype), torch.tensor(shift).to(dtype)
+    for t in (xt, st, ht):
+        t.requires_grad_(True)
+    y = nc.fused_instnorm_style_lrelu(xt, st, ht)
+    ct = torch.tensor(cot).permute(0, 3, 1, 2).to(dtype)
+    gx, gs, gh = torch.autograd.grad(y, (xt, st, ht), ct)
+    assert gx.dtype == gs.dtype == gh.dtype == dtype
+    return (gx.float().permute(0, 2, 3, 1).numpy(), gs.float().numpy(),
+            gh.float().numpy())
+
+
+def _jax_grads(fn, x, scale, shift, cot, dtype):
+    args = [jnp.asarray(a, dtype) for a in (x, scale, shift)]
+    _, vjp = jax.vjp(fn, *args)
+    return [np.asarray(g, np.float32) for g in vjp(jnp.asarray(cot, dtype))]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_float32_gradients_match_pallas_vjp(shape):
+    """fp32: rtol 2e-4 / atol 2e-5, the tolerance of the JAX package's own
+    backward test (sums over the plane in another order)."""
+    x, scale, shift = _inputs(shape, seed=11 + sum(shape))
+    cot = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    got = _port_grads(x, scale, shift, cot, torch.float32)
+    for fn in (pk.fused_instnorm_style_lrelu,
+               pk.reference_instnorm_style_lrelu):
+        want = _jax_grads(fn, x, scale, shift, cot, jnp.float32)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-5)
+
+
+def test_bfloat16_gradients_match_pallas_vjp():
+    """bf16: both compute in fp32 from the same bf16 inputs and round at the
+    end, so they agree within a band of bf16 roundings (2 ulp = 2**-7
+    relative, plus 0.02 absolute for the sums over the plane)."""
+    shape = (2, 8, 8, 16)
+    x, scale, shift = _inputs(shape, seed=13)
+    cot = np.random.default_rng(14).standard_normal(shape).astype(np.float32)
+    x, scale, shift, cot = (
+        np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+        for a in (x, scale, shift, cot))
+    got = _port_grads(x, scale, shift, cot, torch.bfloat16)
+    want = _jax_grads(pk.fused_instnorm_style_lrelu, x, scale, shift, cot,
+                      jnp.bfloat16)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=2 ** -7, atol=0.02)
+
+
+def test_backward_plain_version_equals_autograd():
+    """The explicit backward the kernel is held against on the card equals
+    autograd through the plain forward."""
+    x, scale, shift = _inputs((2, 6, 6, 8), seed=15)
+    xt = torch.tensor(x).permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    st = torch.tensor(scale).requires_grad_(True)
+    ht = torch.tensor(shift).requires_grad_(True)
+    g = torch.tensor(np.random.default_rng(16).standard_normal(
+        xt.shape).astype(np.float32))
+    want = torch.autograd.grad(nc.norm_chain_reference(xt, st, ht),
+                               (xt, st, ht), g)
+    got = nc.norm_chain_bwd_reference(g, xt.detach(), st.detach(),
+                                      ht.detach())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_on_cpu_launches_nothing(monkeypatch):
+    monkeypatch.setattr(nc.norm_chain_backward, "launches", 0)
+    x, scale, shift = _inputs((2, 4, 4, 8), seed=17)
+    _port_grads(x, scale, shift, np.ones_like(x), torch.float32)
+    assert nc.norm_chain_backward.launches == 0
+    assert nc.LIBRARY.loaded is None
