@@ -9,10 +9,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ladder_tpu_torch/csrc/, all sources at once.
 2. Kernels against their plain PyTorch versions at the shapes the main
    paths give them (CelebA-128, h=512, batch 64; float32 and bfloat16),
-   timed with CUDA events beside their bound on this card: the norm chain
-   forward and backward at the four decoder stages, the output stage
-   forward and backward at [64,128,128,128], and the Adam update over the
-   model's encoder+decoder group and over a scalar group.
+   timed beside their bound on this card: the norm chain forward and
+   backward at the four decoder stages, the output stage forward and
+   backward at [64,128,128,128], and the Adam update over the model's
+   encoder+decoder group and over a scalar group. Each kernel's device
+   time (``device_ms``, profiler kernel durations; ``ms`` is this one) is
+   reported apart from its call time through the wrapper (``call_ms``, host
+   clock) and, for Adam, the wrapper's host time (``host_ms``); see
+   kernel_times.py. The norm-chain forward is also timed beside a PyTorch
+   elementwise pass over its input (``stream_device_ms``: y = -x, the same
+   bytes moved). The norm-chain forward and the Adam update are also
+   checked, untimed, on inputs that take their other variants: odd and
+   oversized planes, unaligned starts, tails, a group larger than one
+   launch's table, a parameter replaced under a cached plan.
 3. Serving: the pretrained CelebA-128 'ours' model (demo/celeba_config.json)
    through ladder_tpu_torch's InferenceEngine on the card: every path, the
    kernel launch count per decoding call, agreement with an engine on the
@@ -30,6 +39,15 @@ The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result. ``--only build|kernels|serving|training`` runs a part
 of it (for debugging; it then prints no result lines either).
+
+    python3 chip_smoke.py --ab DIR [--out ab.json]
+
+compares another checkout's kernels with this one's on one card: the
+norm-chain forward at the four decoder stages and the Adam update over the
+encoder+decoder group, held against their plain versions and timed by
+phase 2's functions (``--only times``), with DIR's ladder_tpu_torch, this
+one's twice, and DIR's again, each in a process of its own; one JSON line
+per run, then a summary line.
 """
 
 from __future__ import annotations
@@ -37,6 +55,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,18 +66,51 @@ import urllib.request
 
 import numpy as np
 
+from kernel_times import call_ms, device_ms, host_ms, l2_flusher, smi_line
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = "demo/celeba_config.json"
 SERVE_BATCH = 64
-# (NCHW shape, how many of the four style stages run at it per decode)
+# The decoder's style stages at batch 64: (NCHW shape, how many of the four
+# run at it per decode).
 NORM_CHAIN_STAGES = (((64, 512, 2, 2), 2), ((64, 256, 16, 16), 1),
                      ((64, 128, 64, 64), 1))
+# the stage whose input (16.8 MB in float32) fits the 50 MB L2 cache: also
+# timed with the cache flushed before every launch
+L2_RESIDENT_STAGE = (64, 256, 16, 16)
+# in the profiler's name of PyTorch's elementwise kernel for torch.neg
+# (at::native::neg_kernel_cuda)
+STREAM_MARKS = ("neg",)
 # kernel vs plain version, same inputs on the card:
 #  float32: allclose with rtol = atol = 1e-5 (sums in another order);
 #  bfloat16: one bf16 ulp of the plain output, 2**(e-7) for |y| in
 #  [2**e, 2**(e+1)), plus 1e-6 absolute near zero, where one ulp is smaller
 #  than the float32 difference of the two versions' statistics.
 FP32_TOL = 1e-5
+# The norm-chain forward's variant at each stage shape (ops/norm_chain.py:
+# FORWARD_PATHS), in float32 and bf16.
+NORM_CHAIN_STAGE_PATHS = {(64, 512, 2, 2): "thread per plane",
+                          (64, 256, 16, 16): "group of 16",
+                          (64, 128, 64, 64): "ring"}
+# Norm-chain forward inputs off the main path, checked against the plain
+# version: (case, NCHW shape, elements by which x starts past an aligned
+# allocation: 4 bytes in float32, 2 in bf16; the variant in float32, in
+# bf16).
+NORM_CHAIN_OTHER_SHAPES = (
+    ("odd plane", (3, 5, 7, 9), 0, "generic", "generic"),
+    ("plane above the ring", (2, 3, 192, 192), 0, "generic", "generic"),
+    ("32x32 planes", (2, 5, 32, 32), 0, "ring", "ring"),
+    ("64x128 planes, at the ring's bound in bf16", (1, 3, 64, 128), 0,
+     "generic", "ring"),
+    ("24x24 planes", (2, 6, 24, 24), 0, "generic", "generic"),
+    ("30x34 planes", (1, 3, 30, 34), 0, "generic", "generic"),
+    ("2x4 planes", (2, 3, 2, 4), 0, "group of 16", "group of 16"),
+    ("4x4 planes, planes not a multiple of a block", (3, 5, 4, 4), 0,
+     "group of 16", "group of 16"),
+    ("2x2 planes, x unaligned", (4, 8, 2, 2), 1, "generic", "generic"),
+    ("16x16 planes, x unaligned", (4, 8, 16, 16), 1, "generic", "generic"),
+    ("64x64 planes, x unaligned", (2, 4, 64, 64), 1, "generic", "generic"),
+)
 BF16_NEAR_ZERO = 1e-6
 # GPU engine (TF32 off) vs CPU engine, float32 images in [0, 1]: the two
 # run the same ops with other summation orders, which the 2x2 instance
@@ -82,6 +134,8 @@ SUM_RTOL = 2e-5
 # Adam, kernel vs plain version after 3 updates (tests/test_pallas.py's
 # tolerance for the TPU kernel against the same formula).
 ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
+# tensors in the Adam check's largest group: more than one launch's table
+ADAM_MANY = 300
 TRAIN_BATCH = 64
 TRAIN_STEPS = 4          # per mode; the first is not timed
 TRAIN_CPU_BATCH = 8      # the step that is repeated on the CPU
@@ -115,30 +169,9 @@ def card_peaks(name):
     return "H100", PEAKS["H100"]
 
 
-def smi_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-
-def _cuda_ms(fn, iters):
-    import torch
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
 
 def _bf16_ulp(y):
     import torch
@@ -146,8 +179,60 @@ def _bf16_ulp(y):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def norm_chain_cases(peaks):
-    """Kernel vs plain version at every stage shape, float32 and bf16."""
+def _times(run, plain, iters, marks, flush=None):
+    """Device time and call time of a kernel's wrapper, the call time of its
+    plain version, and with flush the device time with the L2 cache
+    flushed before every launch. ``ms`` is the device time."""
+    dev, seen = device_ms(run, iters, marks)
+    out = {"ms": dev, "device_ms": dev, "call_ms": call_ms(run, iters),
+           "plain_ms": call_ms(plain, iters), "kernels_per_call": seen}
+    if flush is not None:
+        out["device_ms_l2_flushed"] = device_ms(run, iters, marks, flush)[0]
+    return out
+
+
+def _fmt_times(t):
+    flushed = t.get("device_ms_l2_flushed")
+    return (f"device {t['device_ms'] * 1e3:.2f} us"
+            + (f" ({flushed * 1e3:.2f} us with L2 flushed)" if flushed
+               else "")
+            + f"  call {t['call_ms'] * 1e3:.2f} us  plain "
+            f"{t['plain_ms'] * 1e3:.2f} us")
+
+
+def _on_card(shape, dtype, fill, offset=0):
+    """A contiguous CUDA tensor of ``shape`` holding ``fill`` (float32) in
+    dtype, starting ``offset`` elements past an aligned allocation."""
+    import torch
+    n = math.prod(shape)
+    t = torch.empty(n + offset, dtype=dtype, device="cuda")[offset:]
+    return t.view(shape).copy_(fill)
+
+
+def _norm_chain_inputs(shape, dtype, gen, offset=0):
+    import torch
+    b, c = shape[:2]
+    x = _on_card(shape, dtype, 2.0 * torch.randn(shape, generator=gen,
+                                                 device="cuda") + 0.5, offset)
+    scale, shift = (
+        (0.1 * torch.randn((b, c), generator=gen, device="cuda")).to(dtype)
+        for _ in range(2))
+    return x, scale, shift
+
+
+def _forward_path(nc, x, want):
+    """The norm-chain forward's variant for x; raises if it is not want."""
+    path = nc.forward_path(x)
+    if path != want:
+        raise AssertionError(f"norm_chain {list(x.shape)} {x.dtype}: takes "
+                             f"the {path!r} variant, expected {want!r}")
+    return path
+
+
+def norm_chain_cases(peaks, flush, paths=NORM_CHAIN_STAGE_PATHS):
+    """Kernel vs plain version at every stage shape, float32 and bf16, timed
+    beside PyTorch's elementwise y = -x; with paths, each stage's variant
+    is asserted."""
     import torch
     from ladder_tpu_torch.ops import norm_chain as nc
 
@@ -156,36 +241,70 @@ def norm_chain_cases(peaks):
     for shape, per_decode in NORM_CHAIN_STAGES:
         for dtype in (torch.float32, torch.bfloat16):
             b, c = shape[:2]
-            x = (2.0 * torch.randn(shape, generator=g, device="cuda")
-                 + 0.5).to(dtype)
-            scale = (0.1 * torch.randn((b, c), generator=g,
-                                       device="cuda")).to(dtype)
-            shift = (0.1 * torch.randn((b, c), generator=g,
-                                       device="cuda")).to(dtype)
+            x, scale, shift = _norm_chain_inputs(shape, dtype, g)
+            path = _forward_path(nc, x, paths[shape]) if paths else None
             got = nc.fused_instnorm_style_lrelu(x, scale, shift)
             torch.cuda.synchronize()
             want = nc.norm_chain_reference(x, scale, shift)
             err = _hold_rounded(f"norm_chain {shape} {dtype}", got, want,
                                 dtype)
             iters = 200 if x.numel() < 1 << 20 else 50
-            ms = _cuda_ms(lambda: nc.fused_instnorm_style_lrelu(
-                x, scale, shift), iters)
-            plain_ms = _cuda_ms(lambda: nc.norm_chain_reference(
-                x, scale, shift), iters)
+            resident = shape == L2_RESIDENT_STAGE
+            times = _times(
+                lambda: nc.fused_instnorm_style_lrelu(x, scale, shift),
+                lambda: nc.norm_chain_reference(x, scale, shift), iters,
+                ("norm_chain_fwd",), flush if resident else None)
+            # PyTorch's elementwise y = -x into another tensor: the same
+            # bytes read and written, at what this card's memory delivers
+            # to a plain streaming kernel
+            y = torch.empty_like(x)
+            times["stream_device_ms"] = device_ms(
+                lambda: torch.neg(x, out=y), iters, STREAM_MARKS)[0]
+            if resident:
+                times["stream_device_ms_l2_flushed"] = device_ms(
+                    lambda: torch.neg(x, out=y), iters, STREAM_MARKS,
+                    flush)[0]
             itemsize = x.element_size()
             nbytes = 2 * x.numel() * itemsize + 2 * b * c * itemsize
             # flops per element: sum; sub, square, add; sub, mul, fma, select
             bound_ms, bound_by = _bound(nbytes, 8 * x.numel(), peaks)
             cases.append({
                 "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "stages_per_decode": per_decode,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by})
-            log(f"  norm_chain {list(shape)} {cases[-1]['dtype']}: "
-                f"max_abs_err {cases[-1]['max_abs_err']:.3g}  kernel "
-                f"{ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  bound "
-                f"{cases[-1]['bound_ms'] * 1e3:.2f} us")
+                "stages_per_decode": per_decode, "path": path,
+                "max_abs_err": err, **times, "bound_ms": bound_ms,
+                "bound_by": bound_by})
+            log(f"  norm_chain {list(shape)} {cases[-1]['dtype']} ({path}): "
+                f"max_abs_err {err:.3g}  {_fmt_times(times)}  y = -x "
+                f"{times['stream_device_ms'] * 1e3:.2f} us  bound "
+                f"{bound_ms * 1e3:.2f} us")
     return cases
+
+
+def norm_chain_other_cases():
+    """Kernel vs plain version, checked only, on shapes and starts that take
+    the forward's other variants (NORM_CHAIN_OTHER_SHAPES)."""
+    import torch
+    from ladder_tpu_torch.ops import norm_chain as nc
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    others = []
+    for label, shape, offset, *paths in NORM_CHAIN_OTHER_SHAPES:
+        for dtype, path in zip((torch.float32, torch.bfloat16), paths):
+            x, scale, shift = _norm_chain_inputs(shape, dtype, g, offset)
+            _forward_path(nc, x, path)
+            got = nc.fused_instnorm_style_lrelu(x, scale, shift)
+            torch.cuda.synchronize()
+            want = nc.norm_chain_reference(x, scale, shift)
+            name = f"norm_chain {label} {list(shape)} {dtype}"
+            others.append({"case": label, "shape": list(shape),
+                           "dtype": str(dtype).split(".")[-1],
+                           "offset": offset, "path": path,
+                           "max_abs_err": _hold_rounded(name, got, want,
+                                                        dtype)})
+    log("  norm_chain, other shapes and starts: "
+        + "; ".join(f"{o['case']} {o['dtype']} ({o['path']}) "
+                    f"{o['max_abs_err']:.3g}" for o in others))
+    return others
 
 
 def norm_chain_entry(cases, launches):
@@ -224,7 +343,7 @@ def _hold_rounded(name, got, want, dtype):
     return err.max().item()
 
 
-def norm_chain_bwd_cases(peaks):
+def norm_chain_bwd_cases(peaks, flush):
     """Backward kernel vs plain version at every stage shape."""
     import torch
     from ladder_tpu_torch.ops import norm_chain as nc
@@ -268,38 +387,45 @@ def norm_chain_bwd_cases(peaks):
                 if not bool(torch.isfinite(a.float()).all()):
                     raise AssertionError(f"{name}: non-finite output")
             iters = 200 if x.numel() < 1 << 20 else 50
-            ms = _cuda_ms(lambda: nc.norm_chain_backward(g, x, scale, shift),
-                          iters)
-            plain_ms = _cuda_ms(lambda: nc.norm_chain_bwd_reference(
-                g, x, scale, shift), iters)
+            times = _times(
+                lambda: nc.norm_chain_backward(g, x, scale, shift),
+                lambda: nc.norm_chain_bwd_reference(g, x, scale, shift),
+                iters, ("norm_chain_bwd",),
+                flush if shape == L2_RESIDENT_STAGE else None)
             itemsize = x.element_size()
             nbytes = 3 * x.numel() * itemsize + 2 * b * c * (itemsize + 4)
             bound_ms, bound_by = _bound(nbytes, 20 * x.numel(), peaks)
             cases.append({
                 "shape": list(shape), "dtype": str(dtype).split(".")[-1],
                 "stages_per_decode": per_decode, "max_abs_err": max(errs),
-                "planes_compared": share, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by})
+                "planes_compared": share, **times, "bound_ms": bound_ms,
+                "bound_by": bound_by})
             log(f"  norm_chain_bwd {list(shape)} {cases[-1]['dtype']}: "
                 f"max_abs_err {max(errs):.3g} on {share:.1%} of planes  "
-                f"kernel {ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  "
-                f"bound {bound_ms * 1e3:.2f} us")
+                f"{_fmt_times(times)}  bound {bound_ms * 1e3:.2f} us")
     return cases
 
 
 def per_decode_entry(name, replaces, cases, launches):
     """One JSON entry for a norm-chain kernel: the per-decode (four stages,
-    float32) totals."""
+    float32) totals. ``ms`` and ``device_ms`` take the 16x16 stage with the
+    L2 cache flushed (its input from device memory, as the bound assumes);
+    ``device_ms_warm`` takes it with its input left in the L2 cache."""
     f32 = [c for c in cases if c["dtype"] == "float32"]
 
-    def per_decode(key):
-        return sum(c[key] * c["stages_per_decode"] for c in f32)
+    def per_decode(key, fallback=None):
+        return sum(c.get(key, c.get(fallback)) * c["stages_per_decode"]
+                   for c in f32)
 
+    device = per_decode("device_ms_l2_flushed", "device_ms")
     return {"name": name, "route": "cuda",
             "source": "ladder_tpu_torch/csrc/norm_chain.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in f32),
-            "ms": per_decode("ms"), "plain_ms": per_decode("plain_ms"),
+            "ms": device, "device_ms": device,
+            "device_ms_warm": per_decode("device_ms"),
+            "call_ms": per_decode("call_ms"),
+            "plain_ms": per_decode("plain_ms"),
             "bound_ms": per_decode("bound_ms"), "bound_by": "bytes"
             if all(c["bound_by"] == "bytes" for c in f32) else "operations",
             "library_ms": None, "dtype": "float32",
@@ -337,10 +463,10 @@ def output_stage_cases(peaks):
         for part, a, p_ in (("l1", l1, l1_p), ("l2", l2, l2_p)):
             _hold(f"output_stage_fwd {label} {part}", a, p_, 1e-5, 0.0)
         iters = 20
-        ms = _cuda_ms(lambda: ost.fused_output_recon(u, weight, bias,
-                                                     target), iters)
-        plain_ms = _cuda_ms(lambda: ost.output_recon_reference(
-            u, weight, bias, target), iters)
+        times = _times(
+            lambda: ost.fused_output_recon(u, weight, bias, target),
+            lambda: ost.output_recon_reference(u, weight, bias, target),
+            iters, ("output_stage_fwd", "sum_loss_partials"))
         pixels = b * h * w
         nbytes = (u.numel() * u.element_size() + 2 * 3 * pixels * 4
                   + 4 * (weight.numel() + bias.numel() + 2))
@@ -350,12 +476,11 @@ def output_stage_cases(peaks):
                     "max_abs_err": max(errs),
                     "l1_rel_err": abs(l1.item() / l1_p.item() - 1),
                     "l2_rel_err": abs(l2.item() / l2_p.item() - 1),
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by})
+                    **times, "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"  output_stage_fwd {[b, c, h, w]} {label}: dec max_abs_err "
             f"{max(errs):.3g}, l1 rel {fwd[-1]['l1_rel_err']:.2g}, l2 rel "
-            f"{fwd[-1]['l2_rel_err']:.2g}  kernel {ms:.3f} ms  plain "
-            f"{plain_ms:.3f} ms  bound {bound_ms:.3f} ms")
+            f"{fwd[-1]['l2_rel_err']:.2g}  {_fmt_times(times)}  bound "
+            f"{bound_ms * 1e3:.2f} us")
 
         for with_ddec in (False, True):
             dd = ddec if with_ddec else None
@@ -372,10 +497,12 @@ def output_stage_cases(peaks):
                 largest.append(p_.abs().max().item())
                 errs.append(_hold(f"{name} {part}", a, p_, SUM_RTOL,
                                   SUM_RTOL * largest[-1]))
-            ms = _cuda_ms(lambda: ost.output_recon_backward(
-                u, weight, dec, target, a1, a2, dd), iters)
-            plain_ms = _cuda_ms(lambda: ost.output_recon_bwd_reference(
-                u, weight, dec, target, a1, a2, dd), iters)
+            times = _times(
+                lambda: ost.output_recon_backward(u, weight, dec, target, a1,
+                                                  a2, dd),
+                lambda: ost.output_recon_bwd_reference(u, weight, dec, target,
+                                                       a1, a2, dd),
+                iters, ("output_stage_bwd", "sum_partials_kernel"))
             nbytes = (2 * u.numel() * u.element_size()
                       + (3 if with_ddec else 2) * 3 * pixels * 4
                       + 4 * (2 * weight.numel() + bias.numel() + 2))
@@ -385,15 +512,12 @@ def output_stage_cases(peaks):
                         "du_max_abs_err": errs[0], "dw_max_abs_err": errs[1],
                         "db_max_abs_err": errs[2],
                         "dw_largest": largest[0], "db_largest": largest[1],
-                        "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by})
+                        **times, "bound_ms": bound_ms, "bound_by": bound_by})
             log(f"  output_stage_bwd {[b, c, h, w]} {label} ddec="
                 f"{with_ddec}: max_abs_err du {errs[0]:.3g} dW8 "
                 f"{errs[1]:.3g} (largest entry {largest[0]:.4g}) db8 "
-                f"{errs[2]:.3g} (largest {largest[1]:.4g})  kernel {ms:.3f} "
-                f"ms  plain "
-                f"{plain_ms:.3f} ms  bound {bound_ms:.3f} ms")
+                f"{errs[2]:.3g} (largest {largest[1]:.4g})  "
+                f"{_fmt_times(times)}  bound {bound_ms * 1e3:.2f} us")
         del u, dec, dec_p, got, want
         torch.cuda.empty_cache()
     return fwd, bwd
@@ -408,98 +532,189 @@ def output_stage_entry(name, replaces, cases, launches):
             "source": "ladder_tpu_torch/csrc/output_stage.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "device_ms": main["device_ms"], "call_ms": main["call_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "dtype": "float32", "shape": f"u {main['shape']} (NCHW)",
             "cases": cases}
 
 
-def adam_cases(cfg, peaks):
-    """The Adam kernel vs its plain version: three updates of the h=512
-    model's encoder+decoder group and of a one-element group, gradients up
-    to several units in size so that the clip acts."""
+def _adam_groups(cfg):
+    """name -> [(parameter, offset)]: the h=512 model's encoder+decoder
+    group and a one-element group (the main path's, timed), then groups
+    that are only checked: tensors of 1, 3 and 5 elements, tails and an
+    unaligned start (offset: the elements by which a tensor and its
+    gradient and moments start past an aligned allocation), and more
+    tensors than one launch's argument table holds."""
     import torch
     from ladder_tpu_torch.models.builder import make_model
-    from ladder_tpu_torch.ops import adam
-    from ladder_tpu_torch.training.optim import ADAM_B1, ADAM_B2, ADAM_EPS
     from ladder_tpu_torch.training.step import group_params
 
     model = make_model(cfg, seed=3).to("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rand = lambda n: torch.randn(n, generator=gen, device="cuda")
     groups = {
-        "ae": [p.detach().clone() for p in
+        "ae": [(p.detach().clone(), 0) for p in
                group_params(model, ("encoder", "decoder")).values()],
-        "scalar": [torch.tensor(0.5, device="cuda")]}
+        "scalar": [(torch.tensor(0.5, device="cuda"), 0)],
+        "tails": [(rand(1), 0), (rand(3), 0), (rand(5), 0), (rand(1000), 1),
+                  (rand(4099), 0), (rand(3 * 2048 + 1), 0)]}
+    sizes = np.random.default_rng(6).integers(1, 5000, size=ADAM_MANY)
+    groups["many"] = [(rand(int(n)), 0) for n in sizes]
     del model
+    return groups
+
+
+def _adam_state(params, gen):
+    """(kernel state, plain state, gradients) for [(parameter, offset)]:
+    the kernel's tensors start ``offset`` elements past an aligned
+    allocation; half of a gradient's elements are exactly zero."""
+    import torch
+    shapes = [p.shape for p, _ in params]
+    kernel = ([_on_card(p.shape, torch.float32, p, off) for p, off in params],
+              [_on_card(p.shape, torch.float32, 0.0, off)
+               for p, off in params],
+              [_on_card(p.shape, torch.float32, 0.0, off)
+               for p, off in params])
+    plain = ([p.clone() for p, _ in params],
+             [torch.zeros_like(p) for p, _ in params],
+             [torch.zeros_like(p) for p, _ in params])
+    grads = [_on_card(s, torch.float32,
+                      3.0 * torch.randn(s, generator=gen, device="cuda")
+                      * (torch.rand(s, generator=gen, device="cuda")
+                         < (0.5 if math.prod(s) > 1 else 1.0)), off)
+             for s, (_, off) in zip(shapes, params)]
+    return kernel, plain, grads
+
+
+def _adam_steps(name, state, grads, steps):
+    """Updates t in steps of both states; holds the kernel's against the
+    plain version's; returns the largest error."""
+    import torch
+    from ladder_tpu_torch.ops import adam
+    from ladder_tpu_torch.training.optim import ADAM_B1, ADAM_B2, ADAM_EPS
+
+    before = adam.adam_update_.launches
+    for t in steps:
+        adam.adam_update_(*_with_grads(state["kernel"], grads), 2.5e-4, t,
+                          ADAM_B1, ADAM_B2, ADAM_EPS)
+        adam.adam_update_reference(
+            *_with_grads(state["plain"], grads),
+            adam.bias_corrected_lr(2.5e-4, t, ADAM_B1, ADAM_B2), ADAM_B1,
+            ADAM_B2, ADAM_EPS)
+    torch.cuda.synchronize()
+    if adam.adam_update_.launches - before != len(steps):
+        raise AssertionError("adam: one launch count per group update "
+                             "expected")
+    err = 0.0
+    for part, got, want in zip(("p", "m", "v"), state["kernel"],
+                               state["plain"]):
+        for a, w in zip(got, want):
+            err = max(err, _hold(f"adam {name} {part}", a, w, ADAM_RTOL,
+                                 ADAM_ATOL))
+    return err
+
+
+def _check_nonfinite_guard(name, state, grads):
+    """The non-finite guard's kernel on the group: no flag on finite
+    gradients, none for an infinity (it clips to +-1), a flag for a NaN in
+    the last tensor's last element."""
+    import torch
+    from ladder_tpu_torch.ops import adam
+
+    params, m, v = state
+    last = grads[-1].view(-1)
+    kept = last[-1].item()
+    seen = []
+    for value in (kept, float("inf"), float("nan")):
+        last[-1] = value
+        seen.append(adam.any_nonfinite(params, grads, m, v))
+    last[-1] = kept
+    if seen != [False, False, True]:
+        raise AssertionError(f"adam {name}: the non-finite guard saw {seen} "
+                             "for a finite value, an infinity and a NaN")
+    torch.cuda.synchronize()
+
+
+def adam_cases(cfg, peaks, names=None):
+    """The Adam kernel vs its plain version over three updates of each group
+    of _adam_groups (or those of names), gradients up to several units in
+    size so that the clip acts; then, for the 'tails' group, a parameter
+    tensor replaced by another and one more update. The main path's groups
+    are timed."""
+    import torch
+    from ladder_tpu_torch.ops import adam
+    from ladder_tpu_torch.training.optim import ADAM_B1, ADAM_B2, ADAM_EPS
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
     cases = []
-    for name, params in groups.items():
-        n = sum(p.numel() for p in params)
-        # half of a tensor's gradient elements are exactly zero
-        grads = [3.0 * torch.randn(p.shape, generator=gen, device="cuda")
-                 * (torch.rand(p.shape, generator=gen, device="cuda")
-                    < (0.5 if p.numel() > 1 else 1.0))
-                 for p in params]
-        state = {kind: ([p.clone() for p in params],
-                        [torch.zeros_like(p) for p in params],
-                        [torch.zeros_like(p) for p in params])
-                 for kind in ("kernel", "plain")}
-        before = adam.adam_update_.launches
-        for t in (1, 2, 3):
-            adam.adam_update_(*_with_grads(state["kernel"], grads), 2.5e-4,
-                              t, ADAM_B1, ADAM_B2, ADAM_EPS)
-            adam.adam_update_reference(
-                *_with_grads(state["plain"], grads),
-                adam.bias_corrected_lr(2.5e-4, t, ADAM_B1, ADAM_B2), ADAM_B1,
-                ADAM_B2, ADAM_EPS)
-        torch.cuda.synchronize()
-        if adam.adam_update_.launches - before != 3:
-            raise AssertionError("adam: one launch per group update expected")
-        err = 0.0
-        for part, got, want in zip(("p", "m", "v"), state["kernel"],
-                                   state["plain"]):
-            for a, w in zip(got, want):
-                err = max(err, _hold(f"adam {name} {part}", a, w, ADAM_RTOL,
-                                     ADAM_ATOL))
+    for name, params in _adam_groups(cfg).items():
+        if names and name not in names:
+            continue
+        n = sum(p.numel() for p, _ in params)
+        kernel, plain, grads = _adam_state(params, gen)
+        state = {"kernel": kernel, "plain": plain}
+        err = _adam_steps(name, state, grads, (1, 2, 3))
         moved = max((a - p).abs().max().item()
-                    for a, p in zip(state["kernel"][0], params))
+                    for a, (p, _) in zip(state["kernel"][0], params))
         if not moved > 0:
             raise AssertionError(f"adam {name}: parameters did not move")
-        iters = 20 if n > 1 << 20 else 200
-        ms = _cuda_ms(lambda: adam.adam_update_(
-            *_with_grads(state["kernel"], grads), 2.5e-4, 4, ADAM_B1,
-            ADAM_B2, ADAM_EPS), iters)
-        plain_ms = _cuda_ms(lambda: adam.adam_update_reference(
-            *_with_grads(state["plain"], grads), 2.5e-4, ADAM_B1, ADAM_B2,
-            ADAM_EPS), iters)
-        # torch's own fused Adam over the same tensors moves the same bytes
-        # but computes another function (no clip, eps on the corrected
-        # sqrt(v)): a yardstick for the launch, not a library_ms
-        twins = [p.clone().requires_grad_(True) for p in params]
-        for p_, g in zip(twins, grads):
-            p_.grad = g
-        opt = torch.optim.Adam(twins, lr=2.5e-4, betas=(ADAM_B1, ADAM_B2),
-                               eps=ADAM_EPS, fused=True)
-        torch_fused_ms = _cuda_ms(opt.step, iters)
-        # the wrapper's own time on the host (checks, address arrays): where
-        # it is near ms, back-to-back calls wait for the host, not the card
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            adam.adam_update_(*_with_grads(state["kernel"], grads), 2.5e-4, 4,
-                              ADAM_B1, ADAM_B2, ADAM_EPS)
-        host_ms = (time.perf_counter() - t0) * 1e3 / iters
-        torch.cuda.synchronize()
-        bound_ms, bound_by = _bound(28 * n, 12 * n, peaks)
-        cases.append({"group": name, "tensors": len(params), "elements": n,
-                      "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-                      "plain_ms": plain_ms,
-                      "torch_fused_adam_ms": torch_fused_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by})
-        log(f"  adam {name}: {len(params)} tensors, {n} elements, "
-            f"max_abs_err {err:.3g} after 3 updates  kernel {ms * 1e3:.2f} us"
-            f" (wrapper's host time {host_ms * 1e3:.2f} us)  plain {plain_ms * 1e3:.2f} us  torch fused Adam (another "
-            f"function) {torch_fused_ms * 1e3:.2f} us  bound "
-            f"{bound_ms * 1e3:.2f} us")
-        del state, grads, twins, opt
+        case = {"group": name, "tensors": len(params), "elements": n,
+                "unaligned_tensors": sum(off > 0 for _, off in params),
+                "max_abs_err": err}
+        if name in ("tails", "many"):
+            _check_nonfinite_guard(name, state["kernel"], grads)
+        if name == "tails":
+            # a parameter replaced by a tensor elsewhere in memory: the
+            # group's cached plan must follow it
+            old_plan = adam.group_plan(*_with_grads(state["kernel"], grads))
+            for kind in ("kernel", "plain"):
+                state[kind][0][4] = state[kind][0][4].clone()
+            case["max_abs_err_after_replacing_a_parameter"] = _adam_steps(
+                name, state, grads, (4,))
+            if adam.group_plan(*_with_grads(state["kernel"],
+                                            grads)) is old_plan:
+                raise AssertionError("adam: the plan was not rebuilt after "
+                                     "a parameter was replaced")
+        if name in ("ae", "scalar"):
+            iters = 50 if n > 1 << 20 else 200
+
+            def update():
+                adam.adam_update_(*_with_grads(state["kernel"], grads),
+                                  2.5e-4, 4, ADAM_B1, ADAM_B2, ADAM_EPS)
+
+            case.update(_times(update, lambda: adam.adam_update_reference(
+                *_with_grads(state["plain"], grads), 2.5e-4, ADAM_B1,
+                ADAM_B2, ADAM_EPS), iters, ("adam_kernel",)))
+            # the wrapper's own time on the host (checks, address tables):
+            # where it exceeds the device time, calls wait for the host
+            case["host_ms"] = host_ms(update, 100)
+            # torch's own fused Adam over the same tensors moves the same
+            # bytes but computes another function (no clip, eps on the
+            # corrected sqrt(v)): a yardstick, not a library_ms
+            twins = [p.clone().requires_grad_(True) for p, _ in params]
+            for p_, g in zip(twins, grads):
+                p_.grad = g
+            opt = torch.optim.Adam(twins, lr=2.5e-4,
+                                   betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
+                                   fused=True)
+            case["torch_fused_adam_call_ms"] = call_ms(opt.step, iters)
+            case["bound_ms"], case["bound_by"] = _bound(28 * n, 12 * n, peaks)
+            del twins, opt
+            log(f"  adam {name}: {len(params)} tensors, {n} elements, "
+                f"max_abs_err {err:.3g} after 3 updates  {_fmt_times(case)}"
+                f"  host {case['host_ms'] * 1e3:.2f} us  torch fused Adam "
+                f"(another function) call "
+                f"{case['torch_fused_adam_call_ms'] * 1e3:.2f} us  bound "
+                f"{case['bound_ms'] * 1e3:.2f} us")
+        else:
+            log(f"  adam {name}: {len(params)} tensors, {n} elements, "
+                f"{case['unaligned_tensors']} unaligned, max_abs_err "
+                f"{err:.3g} after 3 updates"
+                + (f", {case['max_abs_err_after_replacing_a_parameter']:.3g}"
+                   " after replacing a parameter" if name == "tails" else ""))
+        cases.append(case)
+        del state, grads
         torch.cuda.empty_cache()
     return cases
 
@@ -515,7 +730,9 @@ def adam_entry(cases, launches):
             "source": "ladder_tpu_torch/csrc/adam.cu",
             "replaces": "ladder_tpu/ops/pallas_adam.py:45",
             "launches": launches, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "call_ms": main["call_ms"], "host_ms": main["host_ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "dtype": "float32",
             "shape": f"the encoder+decoder group: {main['tensors']} tensors, "
@@ -913,6 +1130,55 @@ def profile_device(label, fn, marks=()):
             f"{key[:100]}")
 
 
+def times_only(package, cfg, peaks):
+    """``--only times``: phase 2's checks and times of the norm-chain
+    forward at the stage shapes and of the Adam update over the
+    encoder+decoder group, through the wrappers every version of the port
+    has; one dict."""
+    import torch
+    from ladder_tpu_torch.utils.device import float32_exact
+
+    flush = l2_flusher()
+    with float32_exact():
+        cases = norm_chain_cases(peaks, flush, paths=None)
+        del flush
+        torch.cuda.empty_cache()
+        [adam_case] = adam_cases(cfg, peaks, ("ae",))
+    return {"package": package, "card": smi_line(),
+            "norm_chain_fwd": cases, "adam_update": adam_case}
+
+
+def ab(other, out_path=None):
+    """``--ab``: times_only of other's package, this one's twice, other's
+    again, each in a process of its own. Returns the four results."""
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--only", "times",
+             "--package", root], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"chip_smoke --only times on {root} failed:\n"
+                               f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    summary = []
+    for run in runs:
+        decode = norm_chain_entry(run["norm_chain_fwd"], None)
+        adam_case = run["adam_update"]
+        summary.append({
+            "package": run["package"], "card": run["card"],
+            "norm_chain_fwd_per_decode_device_ms": decode["device_ms"],
+            "norm_chain_fwd_per_decode_call_ms": decode["call_ms"],
+            "adam_device_ms": adam_case["device_ms"],
+            "adam_call_ms": adam_case["call_ms"],
+            "adam_host_ms": adam_case["host_ms"]})
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"runs": runs, "summary": summary}, f, indent=1)
+    print(json.dumps({"summary": summary}))
+    return runs
+
+
 def main(argv=None):
     import torch
     if not torch.cuda.is_available():
@@ -921,10 +1187,20 @@ def main(argv=None):
         return 1
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("build", "kernels", "serving",
-                                           "training"))
-    only = parser.parse_args(argv).only
+                                           "training", "times"))
+    parser.add_argument("--package", default=ROOT,
+                        help="checkout whose ladder_tpu_torch is imported")
+    parser.add_argument("--ab", metavar="DIR",
+                        help="compare DIR's kernel times with this tree's")
+    parser.add_argument("--out", help="write the --ab results here (JSON)")
+    args = parser.parse_args(argv)
+    if args.ab:
+        ab(os.path.abspath(args.ab), args.out)
+        return 0
+    only = args.only
+    package = os.path.abspath(args.package)
     os.chdir(ROOT)
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, package)
     from ladder_tpu_torch.ops import adam, norm_chain, output_stage
     from ladder_tpu_torch.ops._build import build_all
     from ladder_tpu_torch.utils.config import process_config
@@ -953,14 +1229,21 @@ def main(argv=None):
     cfg = process_config(CONFIG)
     if only == "build":
         return 0
+    if only == "times":
+        print(json.dumps(times_only(package, cfg, peaks)))
+        return 0
 
     if only in (None, "kernels"):
         log("== phase 2: kernels against their plain versions")
+        flush = l2_flusher()
         with float32_exact():  # the plain versions' products in full float32
-            cases = norm_chain_cases(peaks)
-            bwd_cases = norm_chain_bwd_cases(peaks)
+            cases = norm_chain_cases(peaks, flush)
+            other_cases = norm_chain_other_cases()
+            bwd_cases = norm_chain_bwd_cases(peaks, flush)
             out_fwd, out_bwd = output_stage_cases(peaks)
             adam_c = adam_cases(cfg, peaks)
+        del flush
+        torch.cuda.empty_cache()
         if only:
             return 0
 
@@ -1029,7 +1312,8 @@ def main(argv=None):
 
     total = {k: serving[k] + training[k] for k in serving}
     kernels = [
-        norm_chain_entry(cases, total["norm_chain_fwd"]),
+        dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
+             other_cases=other_cases),
         per_decode_entry("norm_chain_bwd",
                          "ladder_tpu/ops/pallas_kernels.py:60", bwd_cases,
                          total["norm_chain_bwd"]),

@@ -15,9 +15,14 @@ statistics, as the TPU kernel does; dscale and dshift are summed in fp32 and
 cast to scale's dtype.
 
 Kernels: ``ladder_tpu_torch/csrc/norm_chain.cu``, CUDA C++ for sm_90a. The
-forward gives one warp to each (b, c) plane; the backward a group of 4, 32
-or 256 threads by the plane's size. Both re-read the plane (at most 16 KB
-on the decoder's path) from cache instead of holding it.
+forward reads each plane from device memory once with 16-byte accesses and
+holds it on chip: one thread per 4-element plane, a group of 16 threads
+per plane of up to 256 elements (in registers), and, for planes of 1024
+elements up to 16 KB, a persistent grid that streams planes through a ring
+of shared-memory buffers filled by bulk asynchronous copies; other shapes,
+larger planes and unaligned tensors take a generic kernel (``forward_path``
+names the variant). The backward gives a group of 4, 32 or 256 threads to a
+plane by its size and re-reads the plane from cache.
 Bound: bytes. The forward must read x once and write y once,
 2*B*C*H*W*itemsize bytes: 304 MB per CelebA-128 decode at batch 64 in
 float32 (four stages, [64,512,2,2] twice, [64,256,16,16], [64,128,64,64]),
@@ -46,8 +51,12 @@ LIBRARY = KernelLibrary("norm_chain", {
     # g, x, scale, shift, dx, dscale, dshift, planes, hw, dtype, eps, alpha,
     # stream
     "norm_chain_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P],
+    # x, out, hw, dtype -> the forward's variant (an index of FORWARD_PATHS)
+    "norm_chain_fwd_path": [_P, _P, _I, _I],
 })
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward kernel's variants, in the order of csrc/norm_chain.cu:FwdPath
+FORWARD_PATHS = ("generic", "thread per plane", "group of 16", "ring")
 
 
 def norm_chain_reference(x, scale, shift, eps=1e-6, alpha=0.2):
@@ -120,6 +129,15 @@ def _forward(x, scale, shift, eps, alpha):
                      _DTYPES[x.dtype], eps, alpha, stream)
     fused_instnorm_style_lrelu.launches += 1
     return out
+
+
+def forward_path(x):
+    """The variant of the forward kernel that the CUDA tensor x takes (the
+    wrapper's output is a fresh, aligned tensor): one of FORWARD_PATHS."""
+    _require_cuda_contiguous(x=x)
+    h, w = x.shape[2:]
+    return FORWARD_PATHS[LIBRARY.load().norm_chain_fwd_path(
+        x.data_ptr(), 0, h * w, _DTYPES[x.dtype])]
 
 
 def norm_chain_backward(g, x, scale, shift, eps=1e-6, alpha=0.2):

@@ -42,11 +42,11 @@ def adam_update(grads, state, params, lr, b1=ADAM_B1, b2=ADAM_B2,
     costs one host synchronisation per group update; without the guard the
     update never synchronises."""
     names = list(params)
+    p = [params[k] for k in names]
     g = [grads[k] for k in names]
-    if skip_nonfinite and any_nonfinite(g):
+    m = [state["m"][k] for k in names]
+    v = [state["v"][k] for k in names]
+    if skip_nonfinite and any_nonfinite(p, g, m, v):
         return
     state["t"] += 1
-    adam_update_([params[k] for k in names], g,
-                 [state["m"][k] for k in names],
-                 [state["v"][k] for k in names],
-                 lr, state["t"], b1, b2, eps)
+    adam_update_(p, g, m, v, lr, state["t"], b1, b2, eps)

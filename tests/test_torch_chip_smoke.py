@@ -74,7 +74,8 @@ def test_expected_step_launches(tmp_path, mode, want):
 
 def test_kernel_entries_cover_the_five_kernels():
     case = {"shape": [64, 128, 128, 128], "dtype": "float32",
-            "max_abs_err": 1e-6, "ms": 0.4, "plain_ms": 2.0,
+            "max_abs_err": 1e-6, "ms": 0.4, "device_ms": 0.4,
+            "call_ms": 0.5, "host_ms": 0.1, "plain_ms": 2.0,
             "bound_ms": 0.17, "bound_by": "bytes"}
     entries = [
         chip_smoke.output_stage_entry("output_stage_fwd", "f:1", [case], 3),
@@ -87,10 +88,11 @@ def test_kernel_entries_cover_the_five_kernels():
                                     elements=10)], 8)]
     for entry in entries:
         for key in ("name", "route", "source", "replaces", "launches",
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms"):
+                    "max_abs_err", "ms", "device_ms", "call_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms"):
             assert key in entry
-        assert entry["ms"] == 0.4 and entry["route"] == "cuda"
+        assert entry["ms"] == entry["device_ms"] == 0.4
+        assert entry["call_ms"] == 0.5 and entry["route"] == "cuda"
         assert (chip_smoke.ROOT and
                 __import__("os").path.isfile(entry["source"]))
     assert set(chip_smoke.kernel_counters()) == {
@@ -101,17 +103,25 @@ def test_kernel_entries_cover_the_five_kernels():
 
 def test_kernel_entry_has_the_contract_keys():
     cases = [{"shape": list(s), "dtype": dt, "stages_per_decode": k,
-              "max_abs_err": 1e-7, "ms": 0.01, "plain_ms": 0.05,
-              "bound_ms": 0.004, "bound_by": "bytes"}
+              "max_abs_err": 1e-7, "ms": 0.01, "device_ms": 0.01,
+              "call_ms": 0.02, "plain_ms": 0.05, "bound_ms": 0.004,
+              "bound_by": "bytes"}
              for s, k in chip_smoke.NORM_CHAIN_STAGES
              for dt in ("float32", "bfloat16")]
+    # the L2-resident stage is also timed with the cache flushed
+    for case in cases:
+        if tuple(case["shape"]) == chip_smoke.L2_RESIDENT_STAGE:
+            case["device_ms_l2_flushed"] = 0.03
     entry = chip_smoke.norm_chain_entry(cases, launches=28)
     for key in ("name", "route", "source", "replaces", "launches",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms"):
+                "max_abs_err", "ms", "device_ms", "call_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms"):
         assert key in entry
     assert entry["route"] == "cuda" and entry["library_ms"] is None
-    assert entry["ms"] == pytest.approx(0.04)  # four stages per decode
+    # four stages per decode; the 16x16 one with the L2 cache flushed
+    assert entry["ms"] == entry["device_ms"] == pytest.approx(0.06)
+    assert entry["device_ms_warm"] == pytest.approx(0.04)
+    assert entry["call_ms"] == pytest.approx(0.08)
     assert entry["launches"] == 28
     json.dumps({"kernels": [entry]})
 

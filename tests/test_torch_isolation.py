@@ -1,7 +1,7 @@
-"""The port stands alone: no file of ladder_tpu_torch/, and not chip_smoke.py,
-imports jax, flax, msgpack or ladder_tpu, and the package imports with
-those modules blocked. The kernels' shared build helper keys a library by
-its source and flags."""
+"""The port stands alone: no file of ladder_tpu_torch/, and neither
+chip_smoke.py nor kernel_times.py, imports jax, flax, msgpack or
+ladder_tpu, and the package imports with those modules blocked. The
+kernels' shared build helper keys a library by its source and flags."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "ladder_tpu", "sklearn",
              "scipy"}
 SOURCES = sorted((ROOT / "ladder_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 
 
 def _imported_roots(path):

@@ -143,3 +143,132 @@ def test_schedules_match_jax(exp_name, epoch):
     for name in ("lr_ae", "lr_sigma", "lr_prior", "lr_inner_sigma"):
         assert getattr(schedules, name)(cfg, epoch) == getattr(jsched, name)(
             cfg, epoch)
+
+
+def _random_sizes(seed):
+    """1 to 200 tensors of 1 to 2.4M elements, most of them small, as in a
+    model's parameter group."""
+    rng = np.random.default_rng(seed)
+    count = int(rng.integers(1, 201))
+    return np.exp(rng.uniform(0, np.log(2.4e6), size=count)).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_adam_plan_covers_every_element_once(seed):
+    """Every element of every tensor in exactly one chunk, tensor by tensor,
+    no chunk crossing its tensor, launches of at most max_tensors
+    tensors."""
+    sizes = _random_sizes(seed)
+    launches = adam.adam_plan(sizes, max_tensors=64)
+    assert [first for first, *_ in launches] == list(range(0, len(sizes), 64))
+    for first, count, chunks in launches:
+        assert 1 <= count <= 64
+        tensor, start, length = chunks.T
+        part = sizes[first:first + count]
+        assert (length >= 1).all()
+        assert (start + length <= part[tensor]).all()
+        # tensor by tensor, each chunk starting where the one before ended
+        new_tensor = np.r_[True, tensor[1:] != tensor[:-1]]
+        assert (np.diff(tensor) >= 0).all()
+        assert (start[new_tensor] == 0).all()
+        assert (start[1:][~new_tensor[1:]]
+                == (start + length)[:-1][~new_tensor[1:]]).all()
+        assert (np.bincount(tensor, weights=length, minlength=count)
+                == part).all()
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_adam_plan_chunks_are_equal_within_one_chunk(seed):
+    """Every chunk holds ADAM_CHUNK elements but a tensor's last, which holds
+    1 to ADAM_CHUNK: a block's work (one chunk) is the same within one
+    chunk. Starts are multiples of ADAM_CHUNK, so a chunk of an aligned
+    tensor starts 16-byte aligned."""
+    sizes = _random_sizes(100 + seed)
+    for _, _, chunks in adam.adam_plan(sizes):
+        tensor, start, length = chunks.T
+        last = np.r_[tensor[1:] != tensor[:-1], True]
+        assert (length[~last] == adam.ADAM_CHUNK).all()
+        assert ((length[last] >= 1) & (length[last] <= adam.ADAM_CHUNK)).all()
+        assert (start % adam.ADAM_CHUNK == 0).all()
+
+
+def test_adam_plan_of_the_celeba_group():
+    """The h=512 model's encoder+decoder group (72 tensors, 18,861,571
+    elements) is one launch of one block a chunk, every chunk but a
+    tensor's last full."""
+    from ladder_tpu_torch.models.builder import make_model
+    from ladder_tpu_torch.training.step import group_params
+
+    cfg = make_config(exp_name="celeba", dim_input_x=128, dim_input_y=128,
+                      dim_input_channel=3, num_hidden_units=512,
+                      code_size=256, representation_size=32)
+    with torch.device("meta"):
+        model = make_model(cfg)
+    sizes = [p.numel() for p in
+             group_params(model, ("encoder", "decoder")).values()]
+    assert (len(sizes), sum(sizes)) == (72, 18861571)
+    [(first, count, chunks)] = adam.adam_plan(sizes)
+    assert (first, count) == (0, 72)
+    assert len(chunks) == 9245
+    assert (chunks[:, 2] < adam.ADAM_CHUNK).sum() <= len(sizes)
+
+
+def test_adam_plan_key_follows_addresses_and_sizes():
+    base = torch.zeros(10)
+    params = [base[:5], torch.zeros(3)]
+    m = [torch.zeros(5), torch.zeros(3)]
+    v = [torch.zeros(5), torch.zeros(3)]
+    key = adam.adam_plan_key(params, m, v)
+    assert adam.adam_plan_key(params, m, v) == key
+    assert adam.adam_plan_key([base[:6], params[1]], m, v) != key  # size
+    assert adam.adam_plan_key([params[0], params[1].clone()], m, v) != key
+    assert adam.adam_plan_key(params, [m[0], m[1].clone()], v) != key
+    assert adam.adam_plan_key(params, m, [v[0].clone(), v[1]]) != key
+
+
+@pytest.fixture
+def cpu_plans():
+    """Plans built on CPU tensors for the test, dropped after it."""
+    before = dict(adam._PLANS)
+    yield
+    adam._PLANS.clear()
+    adam._PLANS.update(before)
+
+
+def _group(*sizes):
+    return tuple([torch.zeros(n) for n in sizes] for _ in range(4))
+
+
+def test_gradient_addresses_check_the_device(cpu_plans):
+    """A cached plan takes gradients only from its own device: a gradient
+    elsewhere raises before any address reaches a kernel."""
+    params, grads, m, v = _group(5, 3)
+    plan = adam.group_plan(params, grads, m, v)
+    kept, addresses = adam._gradient_addresses(grads, plan)
+    assert list(addresses) == [g.data_ptr() for g in kept]
+    with pytest.raises(ValueError, match="gradients on"):
+        adam._gradient_addresses([grads[0], grads[1].to("meta")], plan)
+    with pytest.raises(TypeError, match="float32"):
+        adam._gradient_addresses([grads[0], grads[1].double()], plan)
+    with pytest.raises(ValueError, match="does not match"):
+        adam._gradient_addresses([grads[0], torch.zeros(4)], plan)
+
+
+@pytest.mark.parametrize("other", ["another dtype", "strided"])
+@pytest.mark.parametrize("role", [0, 2, 3])
+def test_cached_plan_refuses_another_tensor_at_its_address(cpu_plans, other,
+                                                           role):
+    """A tensor of the same size at a cached parameter's or moment's address
+    hits the plan's key; the plan is used only if it is float32 and
+    contiguous."""
+    bufs = [torch.zeros(10) for _ in range(4)]
+    group = [[b[:5]] for b in bufs]  # params, grads, m, v
+    plan = adam.group_plan(*group)
+    assert adam.group_plan(*group) is plan
+    key = adam.adam_plan_key(group[0], *group[2:])
+    b = bufs[role]
+    group[role] = [b[:5].view(torch.int32) if other == "another dtype"
+                   else b[::2]]
+    assert adam.adam_plan_key(group[0], *group[2:]) == key
+    with pytest.raises(ValueError, match="contiguous float32"):
+        adam.group_plan(*group)
