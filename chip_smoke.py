@@ -12,8 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed beside their bound on this card: the norm chain forward and
    backward at the four decoder stages, the output stage forward and
    backward at [64,128,128,128], and the Adam update over the model's
-   encoder+decoder group and over a scalar group. Each kernel's device
-   time (``device_ms``, profiler kernel durations; ``ms`` is this one) is
+   encoder+decoder group, over a scalar group and over the mnist_digit
+   model's encoder+decoder and inner-VAE groups. Each kernel's device
+   time (``device_ms``, profiler kernel durations; ``ms`` is this one;
+   where the inputs would stay in the L2 cache between launches, the
+   norm chain's 16x16 stage and the mnist Adam groups, it is taken with
+   the cache flushed and the warm time kept as ``device_ms_warm``) is
    reported apart from its call time through the wrapper (``call_ms``, host
    clock) and, for Adam, the wrapper's host time (``host_ms``); see
    kernel_times.py. The norm-chain forward is also timed beside a PyTorch
@@ -34,11 +38,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    active group moved and counted, the launch counts of one step, and the
    first step against the same step on the CPU at batch 8. Then the step
    time per mode and a profile of one sequential step.
+5. Training the pretrained mnist_digit model (demo/mnist_digit_config.json:
+   h=256, code 16, t in 2-D, inner VAE 5x512, 50 mixtures, 100 MC samples,
+   batch 256) through ``python -m ladder_tpu_torch.train``'s main, in this
+   process, on synthetic MNIST at MNIST's split sizes (60,000 + 10,000):
+   2 epochs from the pretrained checkpoint groups, then a rerun with
+   num_epochs 3 that resumes from the full train state. Checks: the first
+   step against the CPU's at batch 8, finite curves, the result npz over
+   the 3 epochs, GM_prior_info.npz, both checkpoint groups rewritten and
+   read back, and exactly one Adam launch per updated group per step.
+   Logs per epoch the wall time, step time, steps/s and images/s, the GM
+   fits' times and iterations and the validation loop's time; then a
+   profile of 10 train steps.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result. ``--only build|kernels|serving|training`` runs a part
-of it (for debugging; it then prints no result lines either).
+and prints no result. ``--only build|kernels|serving|training|mnist`` runs
+a part of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
 
@@ -63,6 +79,7 @@ import sys
 import threading
 import time
 import urllib.request
+from itertools import islice
 
 import numpy as np
 
@@ -70,6 +87,16 @@ from kernel_times import call_ms, device_ms, host_ms, l2_flusher, smi_line
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = "demo/celeba_config.json"
+MNIST_CONFIG = "demo/mnist_digit_config.json"
+# Phase 5: the pretrained mnist_digit model at its published widths on
+# synthetic MNIST at MNIST's split sizes, 2 epochs, then resumed to 3.
+MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 60000,
+                   "synthetic_n_test": 10000, "num_epochs": 2,
+                   "sg_pretraining": 1, "accurate_fit": 2,
+                   "enable_plots": 0}
+MNIST_PROFILE_STEPS = 10
+# GM_prior_info.npz's full weights sum to one (float32 sums of 50 terms)
+GM_WEIGHT_SUM_TOL = 1e-4
 SERVE_BATCH = 64
 # The decoder's style stages at batch 64: (NCHW shape, how many of the four
 # run at it per decode).
@@ -180,21 +207,25 @@ def _bf16_ulp(y):
 
 
 def _times(run, plain, iters, marks, flush=None):
-    """Device time and call time of a kernel's wrapper, the call time of its
-    plain version, and with flush the device time with the L2 cache
-    flushed before every launch. ``ms`` is the device time."""
+    """Device time and call time of a kernel's wrapper and the call time of
+    its plain version. ``ms`` is the device time; with flush (inputs that
+    would stay in the L2 cache between launches) it is taken with the cache
+    flushed before every launch, its inputs from device memory as the bound
+    assumes, and ``device_ms_warm`` keeps the time with them left in it."""
     dev, seen = device_ms(run, iters, marks)
     out = {"ms": dev, "device_ms": dev, "call_ms": call_ms(run, iters),
            "plain_ms": call_ms(plain, iters), "kernels_per_call": seen}
     if flush is not None:
-        out["device_ms_l2_flushed"] = device_ms(run, iters, marks, flush)[0]
+        flushed = device_ms(run, iters, marks, flush)[0]
+        out.update(ms=flushed, device_ms=flushed, device_ms_warm=dev,
+                   device_ms_l2_flushed=flushed)
     return out
 
 
 def _fmt_times(t):
-    flushed = t.get("device_ms_l2_flushed")
+    warm = t.get("device_ms_warm")
     return (f"device {t['device_ms'] * 1e3:.2f} us"
-            + (f" ({flushed * 1e3:.2f} us with L2 flushed)" if flushed
+            + (f" with L2 flushed ({warm * 1e3:.2f} us warm)" if warm
                else "")
             + f"  call {t['call_ms'] * 1e3:.2f} us  plain "
             f"{t['plain_ms'] * 1e3:.2f} us")
@@ -423,7 +454,7 @@ def per_decode_entry(name, replaces, cases, launches):
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in f32),
             "ms": device, "device_ms": device,
-            "device_ms_warm": per_decode("device_ms"),
+            "device_ms_warm": per_decode("device_ms_warm", "device_ms"),
             "call_ms": per_decode("call_ms"),
             "plain_ms": per_decode("plain_ms"),
             "bound_ms": per_decode("bound_ms"), "bound_by": "bytes"
@@ -539,29 +570,38 @@ def output_stage_entry(name, replaces, cases, launches):
             "cases": cases}
 
 
-def _adam_groups(cfg):
-    """name -> [(parameter, offset)]: the h=512 model's encoder+decoder
-    group and a one-element group (the main path's, timed), then groups
-    that are only checked: tensors of 1, 3 and 5 elements, tails and an
-    unaligned start (offset: the elements by which a tensor and its
-    gradient and moments start past an aligned allocation), and more
-    tensors than one launch's argument table holds."""
+def _adam_groups(cfg, mnist_cfg=None):
+    """name -> [(parameter, offset)]: the CelebA h=512 model's
+    encoder+decoder group and a one-element group, and the mnist_digit
+    model's (h=256) encoder+decoder and inner-VAE groups (the main paths',
+    timed), then groups that are only checked: tensors of 1, 3 and 5
+    elements, tails and an unaligned start (offset: the elements by which a
+    tensor and its gradient and moments start past an aligned allocation),
+    and more tensors than one launch's argument table holds."""
     import torch
     from ladder_tpu_torch.models.builder import make_model
     from ladder_tpu_torch.training.step import group_params
 
+    def group(m, keys):
+        return [(p.detach().clone(), 0)
+                for p in group_params(m, keys).values()]
+
     model = make_model(cfg, seed=3).to("cuda")
+    groups = {"ae": group(model, ("encoder", "decoder")),
+              "scalar": [(torch.tensor(0.5, device="cuda"), 0)]}
+    del model
+    if mnist_cfg is not None:  # (--ab runs packages without the mnist models)
+        mnist = make_model(mnist_cfg, seed=3).to("cuda")
+        groups.update(mnist_ae=group(mnist, ("encoder", "decoder")),
+                      mnist_prior=group(mnist, ("prior",)))
+        del mnist
     gen = torch.Generator(device="cuda").manual_seed(5)
     rand = lambda n: torch.randn(n, generator=gen, device="cuda")
-    groups = {
-        "ae": [(p.detach().clone(), 0) for p in
-               group_params(model, ("encoder", "decoder")).values()],
-        "scalar": [(torch.tensor(0.5, device="cuda"), 0)],
-        "tails": [(rand(1), 0), (rand(3), 0), (rand(5), 0), (rand(1000), 1),
-                  (rand(4099), 0), (rand(3 * 2048 + 1), 0)]}
+    groups["tails"] = [(rand(1), 0), (rand(3), 0), (rand(5), 0),
+                       (rand(1000), 1), (rand(4099), 0),
+                       (rand(3 * 2048 + 1), 0)]
     sizes = np.random.default_rng(6).integers(1, 5000, size=ADAM_MANY)
     groups["many"] = [(rand(int(n)), 0) for n in sizes]
-    del model
     return groups
 
 
@@ -636,7 +676,10 @@ def _check_nonfinite_guard(name, state, grads):
     torch.cuda.synchronize()
 
 
-def adam_cases(cfg, peaks, names=None):
+ADAM_TIMED = ("ae", "scalar", "mnist_ae", "mnist_prior")
+
+
+def adam_cases(cfg, peaks, names=None, mnist_cfg=None, flush=None):
     """The Adam kernel vs its plain version over three updates of each group
     of _adam_groups (or those of names), gradients up to several units in
     size so that the clip acts; then, for the 'tails' group, a parameter
@@ -648,7 +691,7 @@ def adam_cases(cfg, peaks, names=None):
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = []
-    for name, params in _adam_groups(cfg).items():
+    for name, params in _adam_groups(cfg, mnist_cfg).items():
         if names and name not in names:
             continue
         n = sum(p.numel() for p, _ in params)
@@ -676,16 +719,19 @@ def adam_cases(cfg, peaks, names=None):
                                             grads)) is old_plan:
                 raise AssertionError("adam: the plan was not rebuilt after "
                                      "a parameter was replaced")
-        if name in ("ae", "scalar"):
+        if name in ADAM_TIMED:
             iters = 50 if n > 1 << 20 else 200
 
             def update():
                 adam.adam_update_(*_with_grads(state["kernel"], grads),
                                   2.5e-4, 4, ADAM_B1, ADAM_B2, ADAM_EPS)
 
+            # the mnist groups (31 and 59 MB of p, g, m, v) fit or half
+            # fit the 50 MB L2 cache: their ms is taken with it flushed
             case.update(_times(update, lambda: adam.adam_update_reference(
                 *_with_grads(state["plain"], grads), 2.5e-4, ADAM_B1,
-                ADAM_B2, ADAM_EPS), iters, ("adam_kernel",)))
+                ADAM_B2, ADAM_EPS), iters, ("adam_kernel",),
+                flush if name.startswith("mnist") else None))
             # the wrapper's own time on the host (checks, address tables):
             # where it exceeds the device time, calls wait for the host
             case["host_ms"] = host_ms(update, 100)
@@ -1123,11 +1169,272 @@ def profile_device(label, fn, marks=()):
         for mark in marks)
     log(f"  profile of {label}: device activity {total / 1e3:.3f} ms in "
         f"{wall_us / 1e3:.3f} ms wall (idle share "
-        f"{max(0.0, 1 - total / wall_us):.1%} with the profiler on); "
-        f"{shares}")
+        f"{max(0.0, 1 - total / wall_us):.1%} with the profiler on), "
+        f"{sum(r[2] for r in rows)} device kernels and copies; {shares}")
     for dev, key, count in rows[:18]:
         log(f"    {dev / 1e3:9.3f} ms {100 * dev / total:5.1f}%  x{count:<3d} "
             f"{key[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training the pretrained mnist_digit model through the trainer
+# ---------------------------------------------------------------------------
+
+class _Tee(io.TextIOBase):
+    """Writes to every stream given (the console and a buffer)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def mnist_config(overrides=MNIST_OVERRIDES):
+    """The demo's mnist_digit config (the pretrained model's widths) with
+    the phase's overrides, defaults applied and validated."""
+    from ladder_tpu_torch.utils.config import apply_defaults, validate_config
+    with open(os.path.join(ROOT, MNIST_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(overrides)
+    return validate_config(apply_defaults(cfg))
+
+
+def _pretrained_mnist(cfg):
+    """The pretrained mnist_digit weights (flax layout) and its GM
+    (GM_prior_info.npz's full set, Cholesky factors) as CPU tensors."""
+    import torch
+    from ladder_tpu_torch.ops.distributions import gmm_cholesky
+    from ladder_tpu_torch.utils.checkpoint import load_msgpack
+    d = os.path.join(ROOT, "pretrained_models", cfg["exp_name"])
+    params = {**load_msgpack(os.path.join(d, "vae-model.msgpack")),
+              **load_msgpack(os.path.join(d, "prior-model.msgpack"))}
+    with np.load(os.path.join(d, "GM_prior_info.npz")) as info:
+        gm = {"weights": torch.tensor(info["w_full"]),
+              "means": torch.tensor(info["m_full"]),
+              "chols": gmm_cholesky(torch.tensor(info["K_full"]))}
+    return params, gm
+
+
+def adam_updates(trainer, t_before):
+    """Each optimiser group's updates since ``t_before``, read from its
+    Adam step count ``t``, which counts the group's updates."""
+    return {g: o["t"] - t_before.get(g, 0)
+            for g, o in trainer.state["opt"].items()}
+
+
+def _run_train_cli(workdir, config_path, device):
+    """ladder_tpu_torch.train.main in workdir (its result directory is
+    relative to the working directory); (trainer, its console output,
+    seconds, kernel launches)."""
+    import contextlib
+    from ladder_tpu_torch import train
+
+    buf = io.StringIO()
+    reset_counters()
+    old = os.getcwd()
+    os.chdir(workdir)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            trainer = train.main(["--config", config_path, "--device",
+                                  device])
+        _sync(device)
+    finally:
+        os.chdir(old)
+    return trainer, buf.getvalue(), time.perf_counter() - t0, read_counters()
+
+
+def _check_mnist_run(label, trainer, launches, want_epochs, t_before):
+    """A run's checks: the epochs it trained, finite curves, every updated
+    group updated in each step of an epoch, and one Adam launch per group
+    update (steps x updated groups). Returns the groups' updates."""
+    from ladder_tpu_torch.utils.metrics import BUFFER_NAMES
+    cfg = trainer.config
+    if [t["epoch"] for t in trainer.timings] != list(want_epochs):
+        raise AssertionError(f"{label}: trained epochs "
+                             f"{[t['epoch'] for t in trainer.timings]}, "
+                             f"expected {list(want_epochs)}")
+    for name in BUFFER_NAMES:
+        values = getattr(trainer.metrics, name)
+        if values and not np.isfinite(np.asarray(values, float)).all():
+            raise AssertionError(f"{label}: the {name} curve is not finite")
+    steps = trainer.n_train_iter()
+    updates = adam_updates(trainer, t_before)
+    if (updates["ae"] != steps * len(want_epochs)
+            or any(n % steps for n in updates.values())):
+        raise AssertionError(f"{label}: group updates {updates}, expected "
+                             f"each updated group in every one of the "
+                             f"{steps} steps of an epoch")
+    want = sum(updates.values()) if trainer.device.type == "cuda" else 0
+    if launches["adam_update"] != want:
+        raise AssertionError(f"{label}: {launches['adam_update']} Adam "
+                             f"launches, expected {want}")
+    others = {k: v for k, v in launches.items() if k != "adam_update" and v}
+    if others:
+        raise AssertionError(f"{label}: the mnist path launched {others}")
+    return updates
+
+
+def _check_mnist_artifacts(trainer, copied_ns, work):
+    """The result npz spans the three epochs, GM_prior_info.npz holds a
+    normalised fit with an active component, and both checkpoint groups
+    were rewritten and read back by the port's reader as the model holds
+    them."""
+    from ladder_tpu_torch.utils.checkpoint import VAE_KEYS, load_msgpack
+    cfg = trainer.config
+    result_dir = os.path.join(work, cfg["result_dir"])
+    steps = trainer.n_train_iter()
+    r = np.load(os.path.join(result_dir, f"{cfg['exp_name']}-result.npz"))
+    lengths = {"train_loss": 3 * steps, "elbo_train": 3 * steps,
+               "code_elbo_train": 3 * steps, "sigma": 3,
+               "iter_list_val": 3, "val_loss": 3 * trainer.n_val_iter()}
+    for key, n in lengths.items():
+        if len(r[key]) != n or not np.isfinite(r[key]).all():
+            raise AssertionError(f"result npz {key}: {len(r[key])} finite "
+                                 f"values expected {n}")
+    with np.load(os.path.join(result_dir, "GM_prior_info.npz")) as gm:
+        w_sum = float(gm["w_full"].sum())
+        n_active = len(gm["w_active"])
+    if abs(w_sum - 1.0) > GM_WEIGHT_SUM_TOL or n_active < 1:
+        raise AssertionError(f"GM_prior_info.npz: full weights sum to "
+                             f"{w_sum}, {n_active} active")
+    params = trainer.model.flax_params()
+    ckdir = os.path.join(work, cfg["checkpoint_dir"])
+    for name, keys in (("vae-model", VAE_KEYS),
+                       ("prior-model", ("prior", "inner_sigma"))):
+        path = os.path.join(ckdir, f"{name}.msgpack")
+        if os.stat(path).st_mtime_ns <= copied_ns:
+            raise AssertionError(f"{name}.msgpack was not rewritten")
+        saved = load_msgpack(path)
+        _same_tree(name, saved, {k: params[k] for k in keys})
+    return {"w_full_sum": w_sum, "active_mixtures": n_active,
+            "result_keys": len(r.files)}
+
+
+def _same_tree(label, a, b):
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            raise AssertionError(f"{label}: keys differ")
+        for k in b:
+            _same_tree(f"{label}/{k}", a[k], b[k])
+    elif not np.array_equal(np.asarray(a), np.asarray(b)):
+        raise AssertionError(f"{label}: the checkpoint differs from the "
+                             "model")
+
+
+def drive_mnist(device, overrides=MNIST_OVERRIDES,
+                profile_steps=MNIST_PROFILE_STEPS, cpu_batch=TRAIN_CPU_BATCH):
+    """Phase 5. The first train step from the pretrained weights against
+    the CPU's; then ``python -m ladder_tpu_torch.train`` in this process
+    (its main), 2 epochs from the pretrained checkpoint groups copied into
+    a temporary checkpoint directory, and again with num_epochs 3, which
+    resumes from the full train state. Every check of the phase; returns
+    the runs, their launches and the gaps to the CPU."""
+    import shutil
+    import tempfile
+    from ladder_tpu_torch.data.mnist import synthetic_mnist
+    from ladder_tpu_torch.training.schedules import all_lrs
+
+    cfg = mnist_config(overrides)
+    params, gm = _pretrained_mnist(cfg)
+    (x, _), _ = synthetic_mnist(n_train=cpu_batch, n_test=1, seed=cfg["seed"])
+    images = (x.astype(np.float32) / 255.0)[..., None]
+    lrs = all_lrs(cfg, cfg["sg_pretraining"] + 1)
+    gaps = first_step_against_cpu(cfg, 1, params, gm, images, lrs, device)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mnist_")
+    try:
+        raw = dict(cfg, load_dir=work + "/")
+        ckdir = os.path.join(work, cfg["exp_name"])
+        os.makedirs(ckdir)
+        src = os.path.join(ROOT, "pretrained_models", cfg["exp_name"])
+        for name in ("vae-model.msgpack", "prior-model.msgpack"):
+            shutil.copy(os.path.join(src, name), ckdir)
+        copied_ns = max(os.stat(os.path.join(ckdir, n)).st_mtime_ns
+                        for n in os.listdir(ckdir))
+        runs = []
+        t_before = {}  # the pretrained groups come without moments
+        for epochs in ((1, 2), (3,)):
+            path = os.path.join(work, f"epochs_{epochs[-1]}.json")
+            with open(path, "w") as f:
+                json.dump(dict(raw, num_epochs=epochs[-1]), f)
+            trainer, out, seconds, launches = _run_train_cli(work, path,
+                                                             device)
+            label = f"mnist run to epoch {epochs[-1]}"
+            updates = _check_mnist_run(label, trainer, launches, epochs,
+                                       t_before)
+            # the resumed run starts from the train state saved here
+            t_before = {g: o["t"] for g, o in trainer.state["opt"].items()}
+            runs.append({"trainer": trainer, "seconds": seconds,
+                         "launches": launches, "group_updates": updates,
+                         "epochs": epochs,
+                         "data_seconds": trainer.data_seconds, "out": out})
+        for line in ("Outer VAE model loaded.", "Prior model loaded."):
+            if line not in runs[0]["out"]:
+                raise AssertionError(f"the first run did not print {line!r}"
+                                     ": the pretrained groups were not read")
+        if "Full train state restored (epoch 2)." not in runs[1]["out"]:
+            raise AssertionError("the second run did not resume from the "
+                                 "full train state of epoch 2")
+        artifacts = _check_mnist_artifacts(runs[-1]["trainer"], copied_ns,
+                                           work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    trainer = runs[-1]["trainer"]
+    if profile_steps and trainer.device.type == "cuda":
+        batches = list(islice(trainer.train_batches(), profile_steps))
+        args = (trainer.generator, trainer._gm_for_step(), trainer._flags(),
+                trainer._lrs(), trainer._do_prior())
+
+        def steps():
+            for batch in batches:
+                trainer.train_step(trainer.state, batch, *args)
+
+        profile_device(f"{len(batches)} mnist_digit train steps at batch "
+                       f"{cfg['batch_size']}", steps, marks=("adam_kernel",))
+    return {"runs": runs, "gaps": gaps, "artifacts": artifacts, "cfg": cfg,
+            "cpu_batch": cpu_batch}
+
+
+def log_mnist(result, smi):
+    """Per epoch: wall, step time, steps/s, images/s, the GM fits and the
+    validation loop; per run: the data build and the whole run."""
+    cfg = result["cfg"]
+    bs = cfg["batch_size"]
+    for run in result["runs"]:
+        log(f"  run to epoch {run['epochs'][-1]} on {smi}: "
+            f"{run['seconds']:.2f} s in all, synthetic data "
+            f"({cfg['synthetic_n_train']} + {cfg['synthetic_n_test']} "
+            f"images) built in {run['data_seconds']:.2f} s; launches "
+            f"{run['launches']}; group updates {run['group_updates']}")
+        for t in run["trainer"].timings:
+            tr = t["train"]
+            log(f"    epoch {t['epoch']}: {tr['steps']} steps in "
+                f"{tr['wall_s']:.3f} s: step {tr['step_ms']:.2f} ms (epoch "
+                f"wall / steps), dispatch median {tr['p50_ms']:.2f} ms, "
+                f"{1e3 / tr['step_ms']:.2f} steps/s, "
+                f"{tr['images_per_sec']:.1f} images/s at batch {bs}; "
+                f"validation {t['val_s']:.3f} s")
+            for g in t["gm"]:
+                log(f"      GM {g['mode']} fit: {g['samples']} samples, "
+                    f"{g['n_iter']} iterations "
+                    f"({'converged' if g['converged'] else 'not converged'}"
+                    f"), {g['seconds']:.3f} s")
+    metric_gap, later_gap, worst, mean = result["gaps"]
+    log(f"  first step vs CPU at batch {result['cpu_batch']}: metrics "
+        f"within {metric_gap:.2g} relative before any update (bound "
+        f"{TRAIN_METRIC_RTOL}), {later_gap:.2g} after one (bound "
+        f"{TRAIN_LATER_METRIC_RTOL}); parameters within {worst:.3g} lr, "
+        f"{mean:.2g} lr on average (bounds {TRAIN_PARAM_MAX_LR}, "
+        f"{TRAIN_PARAM_MEAN_LR})")
+    log(f"  artifacts: {result['artifacts']}")
 
 
 def times_only(package, cfg, peaks):
@@ -1187,7 +1494,7 @@ def main(argv=None):
         return 1
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("build", "kernels", "serving",
-                                           "training", "times"))
+                                           "training", "mnist", "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -1241,11 +1548,18 @@ def main(argv=None):
             other_cases = norm_chain_other_cases()
             bwd_cases = norm_chain_bwd_cases(peaks, flush)
             out_fwd, out_bwd = output_stage_cases(peaks)
-            adam_c = adam_cases(cfg, peaks)
+            adam_c = adam_cases(cfg, peaks, mnist_cfg=mnist_config(),
+                                flush=flush)
         del flush
         torch.cuda.empty_cache()
         if only:
             return 0
+
+    if only == "mnist":
+        log("== phase 5: training the pretrained mnist_digit model through "
+            "the trainer")
+        log_mnist(drive_mnist("cuda"), smi)
+        return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
     reset_counters()
@@ -1309,8 +1623,23 @@ def main(argv=None):
     missing = [k for k, v in training.items() if v <= 0]
     if missing:
         raise AssertionError(f"training never launched {missing}")
+    del train, eng, run
+    torch.cuda.empty_cache()
 
-    total = {k: serving[k] + training[k] for k in serving}
+    log("== phase 5: training the pretrained mnist_digit model through the "
+        "trainer")
+    mnist = drive_mnist("cuda")
+    log_mnist(mnist, smi)
+    mnist_launches = dict.fromkeys(serving, 0)
+    for r in mnist["runs"]:
+        mnist_launches = {k: mnist_launches[k] + v
+                          for k, v in r["launches"].items()}
+    if mnist_launches["adam_update"] <= 0:
+        raise AssertionError("the mnist trainer never launched the Adam "
+                             "kernel")
+
+    total = {k: serving[k] + training[k] + mnist_launches[k]
+             for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -1327,6 +1656,7 @@ def main(argv=None):
     for entry in kernels:
         entry["launches_serving"] = serving[entry["name"]]
         entry["launches_training"] = training[entry["name"]]
+        entry["launches_mnist"] = mnist_launches[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@ The port of ``ladder_tpu/models/builder.py``. The submodules are the flax
 parameter groups ('encoder', 'decoder', 'sigma', 'prior' holding the inner
 VAE nets or the vamp pseudo-inputs, 'inner_sigma'), so the state-dict keys
 are the flax paths joined with '.' (utils/weights.py). Images are NCHW
-here; the serving engine converts from and to NHWC.
-
-Only the CelebA family is ported so far; the mnist families raise.
+here; the serving engine and the train step convert from and to NHWC.
+Model dispatch on config['exp_name'] is ``ladder_tpu``'s (mnist_digit,
+mnist_fashion, celeba).
 """
 
 from __future__ import annotations
@@ -22,6 +22,12 @@ from ladder_tpu_torch.models.inner_vae import (
     VampPseudoInputs,
 )
 from ladder_tpu_torch.models.layers import init_parameters
+from ladder_tpu_torch.models.mnist import (
+    DigitDecoder,
+    DigitEncoder,
+    FashionDecoder,
+    FashionEncoder,
+)
 from ladder_tpu_torch.utils.weights import flax_to_torch, torch_to_flax
 
 PRIORS_WITH_INNER_VAE = ("ours", "hierarchical")
@@ -42,20 +48,24 @@ class LadderModel(nn.Module):
         exp = cfg["exp_name"]
         lvp = cfg["latent_variance_precision"]
         dt = self.dtype = COMPUTE_DTYPES[cfg.get("dtype", "float32")]
-        if exp in ("mnist_digit", "mnist_fashion"):
-            raise NotImplementedError(
-                f"exp_name={exp!r} is not ported to ladder_tpu_torch yet; "
-                "see ROADMAP.md for the order of the remaining modules")
-        if exp != "celeba":
+        if exp == "mnist_digit":
+            self.encoder = DigitEncoder(h, cfg["code_size"],
+                                        cfg["kernel_size"], lvp, dtype=dt)
+            self.decoder = DigitDecoder(h, cfg["code_size"], dtype=dt)
+        elif exp == "mnist_fashion":
+            self.encoder = FashionEncoder(h, cfg["code_size"], lvp, dtype=dt)
+            self.decoder = FashionDecoder(h, cfg["code_size"], dtype=dt)
+        elif exp == "celeba":
+            self.encoder = CelebAEncoder(
+                h, cfg["code_size"], cfg["kernel_size"], lvp, dtype=dt,
+                bn_frozen=cfg.get("bn_mode") == "frozen",
+                image_size=cfg["dim_input_x"],
+                in_channels=cfg["dim_input_channel"])
+            self.decoder = CelebADecoder(
+                h, cfg["code_size"], dtype=dt,
+                use_pallas=bool(cfg.get("use_pallas", 0)))
+        else:
             raise ValueError(f"unknown exp_name: {exp}")
-        self.encoder = CelebAEncoder(
-            h, cfg["code_size"], cfg["kernel_size"], lvp, dtype=dt,
-            bn_frozen=cfg.get("bn_mode") == "frozen",
-            image_size=cfg["dim_input_x"],
-            in_channels=cfg["dim_input_channel"])
-        self.decoder = CelebADecoder(
-            h, cfg["code_size"], dtype=dt,
-            use_pallas=bool(cfg.get("use_pallas", 0)))
         self.sigma = nn.ParameterDict(
             {"sigma": nn.Parameter(torch.tensor(float(cfg["sigma"])))})
         self._bn_stats_set = False
@@ -88,6 +98,15 @@ class LadderModel(nn.Module):
             with torch.no_grad():
                 self.prior["vamp"].psedeu_input.normal_(generator=g)
 
+    def count_params(self):
+        """Per-group trainable parameter counts [encoder, decoder, sigma,
+        prior, inner_sigma], as ``ladder_tpu``'s count_params."""
+        counts = dict.fromkeys(
+            ("encoder", "decoder", "sigma", "prior", "inner_sigma"), 0)
+        for name, p in self.named_parameters():
+            counts[name.split(".", 1)[0]] += p.numel()
+        return list(counts.values())
+
     # ---- flax-layout parameter trees ----------------------------------
     def flax_params(self):
         """The parameters as a flax-layout tree of numpy arrays."""
@@ -109,7 +128,8 @@ class LadderModel(nn.Module):
 
     def encode(self, x):
         """Images [B,C,H,W] in [0,1] -> (code_mean, code_std)."""
-        if self.encoder.bn_frozen and not self._bn_stats_set:
+        if (getattr(self.encoder, "bn_frozen", False)
+                and not self._bn_stats_set):
             raise ValueError(
                 "bn_mode='frozen' needs population statistics: call "
                 "set_bn_stats() with serving.bn_freeze.load_bn_stats(...)")

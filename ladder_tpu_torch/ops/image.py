@@ -1,5 +1,13 @@
-"""Image-space ops of the CelebA decoder, NCHW: TF1-semantics bilinear
-resize, instance norm, and the [2x resize -> SAME 3x3 conv] pair.
+"""Image-space ops of the conv VAE stacks, NCHW: depth_to_space and
+symmetric padding (the mnist families), TF1-semantics bilinear resize,
+instance norm, and the [2x resize -> SAME 3x3 conv] pair (CelebA).
+
+``depth_to_space`` keeps TF's DCR channel order (``tf.nn.depth_to_space``,
+``ladder_tpu/ops/image.py:21-28``): output channel o of block offset (i, j)
+is input channel (i*r + j)*C + o. ``torch.pixel_shuffle`` is CRD
+(o*r*r + i*r + j), so it would scramble the decoders' channels.
+``pad_symmetric`` is numpy's / TF's SYMMETRIC mode, which repeats the edge
+pixel; torch's ``reflect`` mode does not.
 
 ``resize_bilinear_tf1`` reproduces TF1 ``tf.image.resize_images`` default
 semantics (align_corners=False, half_pixel_centers=False: src = dst * in/out)
@@ -17,6 +25,28 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def depth_to_space(x, block_size):
+    """[B, C*r*r, H, W] -> [B, C, H*r, W*r] in TF's DCR order."""
+    b, c, h, w = x.shape
+    r = block_size
+    oc = c // (r * r)
+    x = x.reshape(b, r, r, oc, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, oc, h * r, w * r)
+
+
+def pad_symmetric(x, pad_h, pad_w):
+    """SYMMETRIC padding of the two spatial dims of NCHW: the border rows
+    and columns are mirrored with the edge repeated ([a b c] padded by 2
+    -> [b a a b c c b])."""
+    if pad_h:
+        x = torch.cat([x[:, :, :pad_h].flip(2), x,
+                       x[:, :, -pad_h:].flip(2)], dim=2)
+    if pad_w:
+        x = torch.cat([x[:, :, :, :pad_w].flip(3), x,
+                       x[:, :, :, -pad_w:].flip(3)], dim=3)
+    return x
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,4 +1,5 @@
-"""Checkpoint loading: the reference's two-group layout, read without flax.
+"""Checkpoints: the reference's two-group layout plus the full train
+state, read and written without flax.
 
 ``ladder_tpu`` writes its checkpoints with ``flax.serialization``: a msgpack
 map of nested string-keyed maps whose leaves are ndarrays packed as msgpack
@@ -10,7 +11,18 @@ with the small pure-Python decoder below, so it needs neither flax nor the
 
 Trees come back as nested dicts of numpy arrays in the flax layout (HWIO
 conv kernels, [in, out] dense kernels); ``utils/weights.py`` turns them into
-module state.
+module state. The writer (``msgpack_serialize``) emits the bytes
+``flax.serialization.msgpack_serialize`` emits for the same tree, so either
+package reads the other's files. Writes go to a temporary file that
+``os.replace`` moves into place.
+
+``CheckpointManager`` works on flax-layout trees of numpy arrays: 'vae-model'
+(encoder, decoder, sigma), 'prior-model' (prior, inner_sigma) and
+'train-state' ({state, extra}: the train state as
+``training/step.py:flax_state`` lays it out, and the trainer's epoch, fitted
+GMs, metric buffers and random state). It writes synchronously;
+``ladder_tpu``'s asynchronous writer and orbax backend are not ported and
+their options raise.
 """
 
 from __future__ import annotations
@@ -19,6 +31,8 @@ import os
 import struct
 
 import numpy as np
+
+from ladder_tpu_torch.ops.gmm import ACTIVE_WEIGHT_THRESHOLD
 
 VAE_KEYS = ("encoder", "decoder", "sigma")
 PRIOR_KEYS = ("prior", "inner_sigma")
@@ -154,15 +168,168 @@ def load_msgpack(path):
         return msgpack_restore(f.read())
 
 
+# flax splits arrays above this into chunks, which the reader refuses
+_MAX_UNCHUNKED_BYTES = 2 ** 30
+
+
+def _header(out, n, small, fix, wide):
+    """A length header: ``fix | n`` when n < small, else the first of
+    ``wide`` ((limit, type byte, struct format), ...) that holds n."""
+    if fix is not None and n < small:
+        out.append(bytes([fix | n]))
+        return
+    for limit, code, fmt in wide:
+        if n < limit:
+            out.append(bytes([code]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack length {n} is too large")
+
+
+_STR = ((1 << 8, 0xD9, ">B"), (1 << 16, 0xDA, ">H"), (1 << 32, 0xDB, ">I"))
+_BIN = ((1 << 8, 0xC4, ">B"), (1 << 16, 0xC5, ">H"), (1 << 32, 0xC6, ">I"))
+_ARRAY = ((1 << 16, 0xDC, ">H"), (1 << 32, 0xDD, ">I"))
+_MAP = ((1 << 16, 0xDE, ">H"), (1 << 32, 0xDF, ">I"))
+_EXT = ((1 << 8, 0xC7, ">B"), (1 << 16, 0xC8, ">H"), (1 << 32, 0xC9, ">I"))
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _pack_int(out, v):
+    if 0 <= v < 128:
+        out.append(bytes([v]))
+    elif -32 <= v < 0:
+        out.append(struct.pack(">b", v))
+    elif v >= 0:
+        for limit, code, fmt in ((1 << 8, 0xCC, ">B"), (1 << 16, 0xCD, ">H"),
+                                 (1 << 32, 0xCE, ">I"),
+                                 (1 << 64, 0xCF, ">Q")):
+            if v < limit:
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+    else:
+        for limit, code, fmt in ((1 << 7, 0xD0, ">b"), (1 << 15, 0xD1, ">h"),
+                                 (1 << 31, 0xD2, ">i"),
+                                 (1 << 63, 0xD3, ">q")):
+            if -v <= limit:
+                out.append(bytes([code]) + struct.pack(fmt, v))
+                return
+        raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(out, code, data):
+    n = len(data)
+    if n in _FIXEXT:
+        out.append(bytes([_FIXEXT[n]]))
+    else:
+        _header(out, n, 0, None, _EXT)
+    out.append(struct.pack(">b", code) + data)
+
+
+def _ndarray_to_bytes(arr):
+    """The ext payload of an array: msgpack (shape, dtype name, C bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be written")
+    if arr.nbytes > _MAX_UNCHUNKED_BYTES:
+        raise ValueError("arrays above 1 GiB (chunked by flax) are not "
+                         "supported")
+    out = []
+    _pack(out, (arr.shape, arr.dtype.name, arr.tobytes("C")))
+    return b"".join(out)
+
+
+def _pack(out, obj):
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _header(out, len(data), 32, 0xA0, _STR)
+        out.append(data)
+    elif isinstance(obj, bytes):
+        _header(out, len(obj), 0, None, _BIN)
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 16, 0x90, _ARRAY)
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 16, 0x80, _MAP)
+        # flax copies the tree through jax.tree_util first, which sorts
+        # every dict's keys
+        for k, v in sorted(obj.items(), key=lambda kv: kv[0]):
+            _pack(out, k)
+            _pack(out, v)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to a checkpoint")
+
+
+def msgpack_serialize(tree):
+    """A nested tree of dicts, lists, Python scalars, numpy arrays and numpy
+    scalars -> the bytes ``flax.serialization.msgpack_serialize`` writes
+    for it."""
+    out = []
+    _pack(out, tree)
+    return b"".join(out)
+
+
+def save_msgpack(path, tree):
+    """Write ``tree`` to ``path`` through a temporary file and os.replace,
+    so a crash never leaves a half-written checkpoint."""
+    data = msgpack_serialize(tree)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
 class CheckpointManager:
-    """Paths and load side of ``ladder_tpu.utils.checkpoint.CheckpointManager``."""
+    """The two parameter groups and the full train state of
+    ``ladder_tpu.utils.checkpoint.CheckpointManager``, on flax-layout trees
+    of numpy arrays, written synchronously."""
 
     def __init__(self, config):
+        if config.get("checkpoint_backend", "msgpack") != "msgpack":
+            raise NotImplementedError(
+                f"checkpoint_backend={config['checkpoint_backend']!r}: only "
+                "the msgpack backend is ported (ROADMAP.md)")
+        if config.get("async_checkpoint"):
+            raise NotImplementedError(
+                "async_checkpoint=1: the asynchronous checkpoint writer is "
+                "not ported; set async_checkpoint to 0 (ROADMAP.md)")
         self.config = config
         ckdir = config["checkpoint_dir"]
         self.path_vae = os.path.join(ckdir, "vae-model.msgpack")
         self.path_prior = os.path.join(ckdir, "prior-model.msgpack")
         self.path_state = os.path.join(ckdir, "train-state.msgpack")
+
+    def flush(self):
+        """Every write is on disk when it returns: nothing to wait for."""
+
+    def save(self, params, model="joint"):
+        """Write the 'vae-model' and/or 'prior-model' groups of a flax-layout
+        parameter tree, gated as the reference gates them (base.py:51-66)."""
+        print("Saving model...")
+        cfg = self.config
+        has_prior = cfg["prior"] in ("ours", "hierarchical", "vampPrior")
+        if model in ("VAE", "joint") and (model == "VAE"
+                                          or cfg["TRAIN_VAE"] == 1):
+            save_msgpack(self.path_vae,
+                         {k: params[k] for k in VAE_KEYS if k in params})
+            print("Outer VAE model saved.")
+        if has_prior and (model == "prior"
+                          or (model == "joint" and cfg["TRAIN_prior"] == 1)):
+            save_msgpack(self.path_prior,
+                         {k: params[k] for k in PRIOR_KEYS if k in params})
+            print("Prior model saved.")
 
     def load(self, params, model):
         """Merge the saved group ('VAE' or 'prior') into a flax-layout
@@ -183,6 +350,32 @@ class CheckpointManager:
                 params[k] = v
         print(f"{'Outer VAE' if model == 'VAE' else 'Prior'} model loaded.")
         return params
+
+    def save_full(self, state, extra=None):
+        """Write 'train-state': ``state`` is the flax-layout train state
+        {params, opt, step}, ``extra`` a tree of host values."""
+        save_msgpack(self.path_state, {"state": state, "extra": extra or {}})
+
+    def load_full(self):
+        """(flax-layout train state, extra), or None without a file."""
+        if not os.path.isfile(self.path_state):
+            return None
+        raw = load_msgpack(self.path_state)
+        return raw["state"], raw.get("extra", {})
+
+
+def save_gm_prior_info(result_dir, weights, means, covs,
+                       active_threshold=ACTIVE_WEIGHT_THRESHOLD):
+    """GM_prior_info.npz: the accurate fit's active components (weights
+    renormalised) and the full parameter sets (base.py:768-777)."""
+    w, m, K = np.asarray(weights), np.asarray(means), np.asarray(covs)
+    idx = np.where(w >= active_threshold)[0]
+    w_active = w[idx]
+    w_active = w_active / w_active.sum() if w_active.size else w_active
+    filename = os.path.join(result_dir, "GM_prior_info.npz")
+    np.savez(filename, w_active=w_active, m_active=m[idx], K_active=K[idx],
+             w_full=w, m_full=m, K_full=K)
+    return filename
 
 
 def _check_same_structure(template, saved, path):

@@ -7,13 +7,16 @@ directory scheme
 with the ``load_dir != "default"`` branch that redirects checkpoints to a
 pretrained-model directory and results to ./figures/{exp_name}/result/.
 A config that one package accepts, the other accepts and resolves to the
-same dict.
+same dict. ``save_config``, ``create_dirs`` and ``get_args`` serve the train
+CLI as they serve ``ladder_tpu``'s.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+from datetime import datetime
 
 
 def get_config_from_json(json_file):
@@ -163,3 +166,38 @@ def process_config(json_file):
     print("Models will be saved / loaded at:\n{}".format(config["checkpoint_dir"]))
     print("Results will be saved at:\n{}\n".format(config["result_dir"]))
     return config
+
+
+def save_config(config):
+    """Snapshot the config into checkpoint_dir as a timestamped txt file
+    (reference utils.py:24-37)."""
+    stamp = datetime.now().strftime("%d-%b-%Y-%H-%M")
+    filename = os.path.join(
+        config["checkpoint_dir"], "training_config_{}.txt".format(stamp))
+    with open(filename, "w") as f:
+        f.write(json.dumps(config))
+    print("The current config is saved at {}".format(filename))
+    return filename
+
+
+def create_dirs(dirs):
+    """Create each directory if missing (reference utils.py:80-93)."""
+    try:
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+    except OSError as err:
+        print("Creating directories error: {0}".format(err))
+        raise SystemExit(-1)
+    return 0
+
+
+def get_args(argv=None):
+    """The train CLI's arguments: --config, and --device (cuda unless the
+    caller asks for the CPU)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument(
+        "-c", "--config", metavar="C", default="None",
+        help="The Configuration file")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default), cuda:N or cpu")
+    return parser.parse_args(argv)

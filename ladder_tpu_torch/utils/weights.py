@@ -6,10 +6,14 @@ changes:
 
 - conv ``kernel`` [kh, kw, in, out] (HWIO) -> ``weight`` [out, in, kh, kw];
 - dense ``kernel`` [in, out] -> ``weight`` [out, in];
-- the CelebA encoder's ``code_mean`` / ``code_std_dev`` kernels read the
-  final [B, 2, 2, C] map flattened in NHWC order (``ladder_tpu/models/
-  celeba.py:65``: row (h*2 + w)*C + c). The port flattens NCHW
-  (column c*4 + h*2 + w), so those rows are permuted;
+- the encoder's first dense layer after its last conv reads that conv's
+  [B, H, W, C] map flattened in NHWC order (row (h*W + w)*C + c); the port
+  flattens NCHW (row c*H*W + h*W + w), so the rows of that kernel are
+  permuted. It is ``code_mean`` / ``code_std_dev`` in CelebA (``ladder_tpu/
+  models/celeba.py:65``, the [B,2,2,h] map of ``Conv_5``) and ``Dense_0``
+  in the mnist families (``ladder_tpu/models/mnist.py:42,88``: digit
+  [B,4,4,h] from ``Conv_2``, fashion [B,2,2,h/2] from ``Conv_3``). The
+  decoders' ``Dense_0`` feeds a 1x1 map and keeps its layout;
 - everything else (biases, BatchNorm ``gamma``/``beta``, scalars, the
   VampPrior pseudo-inputs) keeps its name, shape and bytes.
 
@@ -25,19 +29,37 @@ from __future__ import annotations
 
 import numpy as np
 
-_CELEBA_FLAT_HEADS = ("code_mean", "code_std_dev")
+def _flat_layer(convs, dense):
+    """(channels of the encoder's last conv, names of the dense layers
+    that read its flattened map), or None. ``convs``: {conv index: output
+    channels} of the encoder; ``dense``: its dense layer names."""
+    if not convs:
+        return None
+    c = convs[max(convs)]
+    if "Dense_0" in dense:                     # the mnist families
+        return c, ("Dense_0",)
+    return c, tuple(n for n in ("code_mean", "code_std_dev") if n in dense)
 
 
-def _celeba_channels_flax(tree):
+def _flat_layer_flax(tree):
     enc = tree.get("encoder", {})
-    if "Conv_5" in enc and any(h in enc for h in _CELEBA_FLAT_HEADS):
-        return enc["Conv_5"]["kernel"].shape[3]
-    return None
+    convs = {int(k[5:]): v["kernel"].shape[3] for k, v in enc.items()
+             if k.startswith("Conv_")}
+    return _flat_layer(convs, [k for k in enc if not k.startswith("Conv_")])
 
 
-def _celeba_channels_torch(state):
-    w = state.get("encoder.Conv_5.weight")
-    return None if w is None else w.shape[0]
+def _flat_layer_torch(state):
+    convs, dense = {}, set()
+    for key, a in state.items():
+        path = key.split(".")
+        if path[0] != "encoder" or len(path) != 3:
+            continue
+        if path[1].startswith("Conv_"):
+            if path[2] == "weight":
+                convs[int(path[1][5:])] = a.shape[0]
+        else:
+            dense.add(path[1])
+    return _flat_layer(convs, dense)
 
 
 def _nhwc_rows_to_nchw(k, c):
@@ -51,14 +73,14 @@ def _nchw_rows_to_nhwc(k, c):
     return k.reshape(c, s, -1).transpose(1, 0, 2).reshape(s * c, -1)
 
 
-def _is_flat_head(path, celeba_c):
-    return (celeba_c is not None and path[0] == "encoder"
-            and len(path) == 3 and path[1] in _CELEBA_FLAT_HEADS)
+def _is_flat_input(path, flat):
+    return (flat is not None and path[0] == "encoder" and len(path) == 3
+            and path[1] in flat[1])
 
 
 def flax_to_torch(tree):
     """Nested flax tree of arrays -> flat {state_dict key: np.ndarray}."""
-    celeba_c = _celeba_channels_flax(tree)
+    flat = _flat_layer_flax(tree)
     out = {}
 
     def walk(node, path):
@@ -72,8 +94,8 @@ def flax_to_torch(tree):
             if a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 2:
-                if _is_flat_head(path, celeba_c):
-                    a = _nhwc_rows_to_nchw(a, celeba_c)
+                if _is_flat_input(path, flat):
+                    a = _nhwc_rows_to_nchw(a, flat[0])
                 a = a.T
             else:
                 raise ValueError(f"kernel {'/'.join(path)} has rank {a.ndim}")
@@ -88,7 +110,7 @@ def torch_to_flax(state):
     """Flat {state_dict key: array or tensor} -> nested flax tree of numpy
     arrays (the inverse of flax_to_torch)."""
     state = {k: _to_numpy(v) for k, v in state.items()}
-    celeba_c = _celeba_channels_torch(state)
+    flat = _flat_layer_torch(state)
     tree = {}
     for key, a in state.items():
         path = tuple(key.split("."))
@@ -98,8 +120,8 @@ def torch_to_flax(state):
                 a = a.transpose(2, 3, 1, 0)
             elif a.ndim == 2:
                 a = a.T
-                if _is_flat_head(path, celeba_c):
-                    a = _nchw_rows_to_nhwc(a, celeba_c)
+                if _is_flat_input(path, flat):
+                    a = _nchw_rows_to_nhwc(a, flat[0])
             else:
                 raise ValueError(f"weight {key} has rank {a.ndim}")
             name = "kernel"

@@ -68,6 +68,15 @@ def test_sources_cover_the_training_slice():
         assert f"ladder_tpu_torch/{name}" in covered
 
 
+def test_sources_cover_the_mnist_slice():
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("train.py", "training/trainer.py", "models/mnist.py",
+                 "ops/gmm.py", "data/__init__.py", "data/mnist.py",
+                 "utils/metrics.py", "utils/checkpoint.py",
+                 "utils/profiling.py", "utils/config.py"):
+        assert f"ladder_tpu_torch/{name}" in covered
+
+
 def test_kernel_sources_include_no_torch_headers():
     """The kernels have a plain C interface: a source that pulled in
     PyTorch's headers would take minutes to compile."""

@@ -156,9 +156,16 @@ def test_ladder_model_tree_matches_jax(prior):
 
 
 def test_ladder_model_mnist_not_ported():
+    """The mnist families build their own modules (the test's name dates
+    from when they were refused; tests/test_torch_mnist_models.py holds
+    them against ladder_tpu); an unknown family is refused."""
+    from ladder_tpu_torch.models.mnist import DigitEncoder, FashionDecoder
     from tests.conftest import make_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LadderModel(make_config())
+    assert isinstance(LadderModel(make_config()).encoder, DigitEncoder)
+    assert isinstance(LadderModel(make_config(
+        exp_name="mnist_fashion")).decoder, FashionDecoder)
+    with pytest.raises(ValueError, match="unknown exp_name"):
+        LadderModel(make_config(exp_name="svhn"))
 
 
 def test_ladder_model_frozen_needs_stats():
