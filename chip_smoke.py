@@ -50,11 +50,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    Logs per epoch the wall time, step time, steps/s and images/s, the GM
    fits' times and iterations and the validation loop's time; then a
    profile of 10 train steps.
+6. Training the pretrained CelebA-128 'ours' model (demo/celeba_config.json,
+   h=512, code 256, t in 32-D, inner VAE 5x512, 50 mixtures, 100 MC
+   samples, batch 64) through ``python -m ladder_tpu_torch.train``'s main
+   on synthetic CelebA TFRecords at the demo's split sizes (1,024 + 256 +
+   128 images) read by the native reader: float32 mode 1 for 2 epochs from
+   the pretrained groups, then resumed to 3; bf16 mode 2 for 1 epoch from
+   the same groups; then ``python -m ladder_tpu_torch.freeze_bn``'s main
+   over 8 train batches of the float32 checkpoint and an InferenceEngine
+   serving it with those BatchNorm statistics. Checks: the native reader,
+   the first 2 batches of epoch 1 on the card and equal to the host's read,
+   finite curves, the result npz keys, GM_prior_info.npz, both checkpoint
+   groups rewritten and read back, the resume, each epoch's launches of the
+   five kernels against what its steps and evaluations launch, the bf16
+   first-step loss within 5% of a float32 single-pass step on the same
+   batch and noise, and a row served alone equal to the same row in a batch
+   of 64. Logs the data build, the reader's time per batch, the epochs as
+   phase 5 does, freeze_bn's time, and a profile of 10 train steps fed by
+   the prefetch thread.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result. ``--only build|kernels|serving|training|mnist`` runs
-a part of it (for debugging; it then prints no result lines either).
+and prints no result. ``--only build|kernels|serving|training|mnist|celeba``
+runs a part of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
 
@@ -95,6 +113,40 @@ MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 60000,
                    "sg_pretraining": 1, "accurate_fit": 2,
                    "enable_plots": 0}
 MNIST_PROFILE_STEPS = 10
+# Phase 6: the pretrained CelebA-128 'ours' model at its published widths
+# (demo/celeba_config.json) on the demo's synthetic split sizes (1,024 train,
+# 256 validation, 128 test images: 16 steps and 4 validation batches an
+# epoch), 2 epochs in float32 then resumed to 3, and 1 epoch in bf16.
+CELEBA_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 1024,
+                    "synthetic_n_val": 256, "synthetic_n_test": 128,
+                    "enable_plots": 0, "num_epochs": 2, "sg_pretraining": 1,
+                    "accurate_fit": 2}
+CELEBA_PROFILE_STEPS = 10
+# train batches of the recalibration pass (python -m ladder_tpu_torch.freeze_bn)
+FREEZE_BATCHES = 8
+# the first batches of epoch 1 held against the host's read of their indices
+CHECKED_BATCHES = 2
+# bf16 first-step loss vs float32 single-pass loss on the same batch and
+# noise (tests/test_perf_modes.py's band for ladder_tpu's bf16 mode)
+BF16_LOSS_RTOL = 0.05
+# frozen BatchNorm: a row encoded alone vs in a batch of 64, max abs over
+# code mean and std (the same arithmetic on other batch shapes)
+FROZEN_ROW_MAX_ABS = 1e-4
+CELEBA_GM_WEIGHT_SUM_TOL = 1e-5
+# the {exp}-result.npz keys that ladder_tpu writes (ladder_tpu/utils/
+# metrics.py:save, the reference's base.py:791-823); the card's machine has
+# no JAX to ask
+RESULT_KEYS = (
+    "iter_list_val", "n_train_iter", "n_val_iter", "train_loss",
+    "elbo_train", "val_loss", "elbo_val", "train_loss_prior",
+    "val_loss_prior", "code_elbo_train", "code_elbo_val",
+    "recons_loss_train", "recons_loss_val", "recons_loss_prior_train",
+    "recons_loss_prior_val", "entropy_z_train", "entropy_z_val",
+    "entropy_t_train", "entropy_t_val", "crossentropy_z_train",
+    "crossentropy_z_val", "crossentropy_t_train", "crossentropy_t_val",
+    "vampPrior_crossEntropy_z_train_prior",
+    "vampPrior_crossEntropy_z_val_prior", "sigma_regularisor_train",
+    "sigma_regularisor_val", "num_para_VAE", "sigma")
 # GM_prior_info.npz's full weights sum to one (float32 sums of 50 terms)
 GM_WEIGHT_SUM_TOL = 1e-4
 SERVE_BATCH = 64
@@ -1145,7 +1197,8 @@ def drive_training(cfg, flax_params, gm, images, device, steps=TRAIN_STEPS,
 
 def profile_device(label, fn, marks=()):
     """Device time by kernel for one call of fn, and the device's idle share
-    of the call's wall time. marks: substrings whose kernels are summed."""
+    of the call's wall time. marks: substrings whose kernels are summed.
+    Returns the profile, or None when it recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1162,7 +1215,7 @@ def profile_device(label, fn, marks=()):
     total = sum(r[0] for r in rows)
     if not total:
         log(f"  profile of {label}: no device time recorded (not measured)")
-        return
+        return None
     shares = ", ".join(
         f"{mark} {sum(r[0] for r in rows if mark in r[1]) / 1e3:.3f} ms "
         f"({sum(r[0] for r in rows if mark in r[1]) / total:.2%})"
@@ -1174,6 +1227,35 @@ def profile_device(label, fn, marks=()):
     for dev, key, count in rows[:18]:
         log(f"    {dev / 1e3:9.3f} ms {100 * dev / total:5.1f}%  x{count:<3d} "
             f"{key[:100]}")
+    return prof
+
+
+def copy_overlap(events, mark="Memcpy HtoD (Pinned"):
+    """How much of the pinned host-to-device copies (the prefetch thread's)
+    ran while a kernel ran: (copies, their microseconds, the share of
+    those microseconds covered by kernels). events: the profile's device
+    events (name, start us, end us)."""
+    kernels, copies = [], []
+    for name, start, end in events:
+        (copies if name.startswith(mark) else kernels).append((start, end))
+    merged = []
+    for start, end in sorted(kernels):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    total = sum(end - start for start, end in copies)
+    covered = sum(max(0.0, min(end, b) - max(start, a))
+                  for start, end in copies for a, b in merged)
+    return len(copies), total, (covered / total if total else None)
+
+
+def device_events(prof):
+    """(name, start us, end us) of every device event of a profile."""
+    import torch
+    return [(evt.name, evt.time_range.start, evt.time_range.end)
+            for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA]
 
 
 # ---------------------------------------------------------------------------
@@ -1282,11 +1364,11 @@ def _check_mnist_run(label, trainer, launches, want_epochs, t_before):
     return updates
 
 
-def _check_mnist_artifacts(trainer, copied_ns, work):
+def _check_artifacts(trainer, copied_ns, work, w_tol=GM_WEIGHT_SUM_TOL):
     """The result npz spans the three epochs, GM_prior_info.npz holds a
-    normalised fit with an active component, and both checkpoint groups
-    were rewritten and read back by the port's reader as the model holds
-    them."""
+    fit whose weights sum to one within w_tol with an active component,
+    and both checkpoint groups were rewritten and read back by the port's
+    reader as the model holds them."""
     from ladder_tpu_torch.utils.checkpoint import VAE_KEYS, load_msgpack
     cfg = trainer.config
     result_dir = os.path.join(work, cfg["result_dir"])
@@ -1302,7 +1384,7 @@ def _check_mnist_artifacts(trainer, copied_ns, work):
     with np.load(os.path.join(result_dir, "GM_prior_info.npz")) as gm:
         w_sum = float(gm["w_full"].sum())
         n_active = len(gm["w_active"])
-    if abs(w_sum - 1.0) > GM_WEIGHT_SUM_TOL or n_active < 1:
+    if abs(w_sum - 1.0) > w_tol or n_active < 1:
         raise AssertionError(f"GM_prior_info.npz: full weights sum to "
                              f"{w_sum}, {n_active} active")
     params = trainer.model.flax_params()
@@ -1315,7 +1397,7 @@ def _check_mnist_artifacts(trainer, copied_ns, work):
         saved = load_msgpack(path)
         _same_tree(name, saved, {k: params[k] for k in keys})
     return {"w_full_sum": w_sum, "active_mixtures": n_active,
-            "result_keys": len(r.files)}
+            "result_keys": sorted(r.files)}
 
 
 def _same_tree(label, a, b):
@@ -1327,6 +1409,18 @@ def _same_tree(label, a, b):
     elif not np.array_equal(np.asarray(a), np.asarray(b)):
         raise AssertionError(f"{label}: the checkpoint differs from the "
                              "model")
+
+
+def _copy_groups(src, load_dir, exp):
+    """The two checkpoint groups of src into load_dir/exp; returns the
+    newest copy's mtime."""
+    import shutil
+    ckdir = os.path.join(load_dir, exp)
+    os.makedirs(ckdir)
+    for name in ("vae-model.msgpack", "prior-model.msgpack"):
+        shutil.copy(os.path.join(src, name), ckdir)
+    return max(os.stat(os.path.join(ckdir, n)).st_mtime_ns
+               for n in os.listdir(ckdir))
 
 
 def drive_mnist(device, overrides=MNIST_OVERRIDES,
@@ -1352,13 +1446,9 @@ def drive_mnist(device, overrides=MNIST_OVERRIDES,
     work = tempfile.mkdtemp(prefix="chip_smoke_mnist_")
     try:
         raw = dict(cfg, load_dir=work + "/")
-        ckdir = os.path.join(work, cfg["exp_name"])
-        os.makedirs(ckdir)
-        src = os.path.join(ROOT, "pretrained_models", cfg["exp_name"])
-        for name in ("vae-model.msgpack", "prior-model.msgpack"):
-            shutil.copy(os.path.join(src, name), ckdir)
-        copied_ns = max(os.stat(os.path.join(ckdir, n)).st_mtime_ns
-                        for n in os.listdir(ckdir))
+        copied_ns = _copy_groups(
+            os.path.join(ROOT, "pretrained_models", cfg["exp_name"]), work,
+            cfg["exp_name"])
         runs = []
         t_before = {}  # the pretrained groups come without moments
         for epochs in ((1, 2), (3,)):
@@ -1383,7 +1473,7 @@ def drive_mnist(device, overrides=MNIST_OVERRIDES,
         if "Full train state restored (epoch 2)." not in runs[1]["out"]:
             raise AssertionError("the second run did not resume from the "
                                  "full train state of epoch 2")
-        artifacts = _check_mnist_artifacts(runs[-1]["trainer"], copied_ns,
+        artifacts = _check_artifacts(runs[-1]["trainer"], copied_ns,
                                            work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1403,9 +1493,27 @@ def drive_mnist(device, overrides=MNIST_OVERRIDES,
             "cpu_batch": cpu_batch}
 
 
+def _log_epochs(trainer, bs):
+    """Per epoch: wall, step time, steps/s, images/s, the dispatch median,
+    the GM fits and the validation loop."""
+    for t in trainer.timings:
+        tr = t["train"]
+        log(f"    epoch {t['epoch']}: {tr['steps']} steps in "
+            f"{tr['wall_s']:.3f} s: step {tr['step_ms']:.2f} ms (epoch "
+            f"wall / steps), dispatch median {tr['p50_ms']:.2f} ms, "
+            f"{1e3 / tr['step_ms']:.2f} steps/s, "
+            f"{tr['images_per_sec']:.1f} images/s at batch {bs}; "
+            f"validation {t['val_s']:.3f} s"
+            + (f"; launches {t['launches']}" if "launches" in t else ""))
+        for g in t["gm"]:
+            log(f"      GM {g['mode']} fit: {g['samples']} samples, "
+                f"{g['n_iter']} iterations "
+                f"({'converged' if g['converged'] else 'not converged'}"
+                f"), {g['seconds']:.3f} s")
+
+
 def log_mnist(result, smi):
-    """Per epoch: wall, step time, steps/s, images/s, the GM fits and the
-    validation loop; per run: the data build and the whole run."""
+    """Per run: the data build and the whole run, then its epochs."""
     cfg = result["cfg"]
     bs = cfg["batch_size"]
     for run in result["runs"]:
@@ -1414,19 +1522,7 @@ def log_mnist(result, smi):
             f"({cfg['synthetic_n_train']} + {cfg['synthetic_n_test']} "
             f"images) built in {run['data_seconds']:.2f} s; launches "
             f"{run['launches']}; group updates {run['group_updates']}")
-        for t in run["trainer"].timings:
-            tr = t["train"]
-            log(f"    epoch {t['epoch']}: {tr['steps']} steps in "
-                f"{tr['wall_s']:.3f} s: step {tr['step_ms']:.2f} ms (epoch "
-                f"wall / steps), dispatch median {tr['p50_ms']:.2f} ms, "
-                f"{1e3 / tr['step_ms']:.2f} steps/s, "
-                f"{tr['images_per_sec']:.1f} images/s at batch {bs}; "
-                f"validation {t['val_s']:.3f} s")
-            for g in t["gm"]:
-                log(f"      GM {g['mode']} fit: {g['samples']} samples, "
-                    f"{g['n_iter']} iterations "
-                    f"({'converged' if g['converged'] else 'not converged'}"
-                    f"), {g['seconds']:.3f} s")
+        _log_epochs(run["trainer"], bs)
     metric_gap, later_gap, worst, mean = result["gaps"]
     log(f"  first step vs CPU at batch {result['cpu_batch']}: metrics "
         f"within {metric_gap:.2g} relative before any update (bound "
@@ -1435,6 +1531,374 @@ def log_mnist(result, smi):
         f"{mean:.2g} lr on average (bounds {TRAIN_PARAM_MAX_LR}, "
         f"{TRAIN_PARAM_MEAN_LR})")
     log(f"  artifacts: {result['artifacts']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training CelebA-128 through the trainer, freezing its BatchNorm
+# statistics and serving the trained model
+# ---------------------------------------------------------------------------
+
+PHASE6 = ("== phase 6: training CelebA-128 through the trainer, then "
+          "freezing its BatchNorm statistics and serving it")
+
+
+def celeba_config(overrides=CELEBA_OVERRIDES):
+    """The demo's CelebA config (the pretrained model's widths) with the
+    phase's overrides, defaults applied and validated."""
+    from ladder_tpu_torch.utils.config import apply_defaults, validate_config
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(overrides)
+    return validate_config(apply_defaults(cfg))
+
+
+def expected_epoch_launches(cfg, mode, steps, evals, sg_overlap, device):
+    """Launches of one CelebA epoch with do_prior=True: its steps (in mode
+    2 on the epoch where prior training and the standard-gaussian
+    pretraining overlap, the prior groups take a second forward pass, of
+    loss_prior, which reaches no decoder backward), and ``evals`` forward
+    passes of eval_step (the test batch and the validation batches), each
+    one decode and one output stage. The GM fits' encodes launch none."""
+    import torch
+    step = expected_step_launches(cfg, mode, device)
+    if torch.device(device).type != "cuda":
+        return step
+    if mode == 2 and sg_overlap:
+        step = dict(step, norm_chain_fwd=step["norm_chain_fwd"] + 4,
+                    output_stage_fwd=step["output_stage_fwd"] + 1)
+    out = {k: v * steps for k, v in step.items()}
+    out["norm_chain_fwd"] += 4 * evals
+    out["output_stage_fwd"] += evals
+    return out
+
+
+class _Recorder:
+    """While on: every JointTrainer epoch records the kernel launches it
+    made (timings[-1]['launches']), and the train step built by a trainer
+    keeps a copy, taken on the step's stream, of the first ``keep``
+    batches it is given."""
+
+    def __init__(self, keep):
+        self.keep, self.batches = keep, []
+
+    def __enter__(self):
+        from ladder_tpu_torch.training import trainer as trainer_mod
+        self.mod = trainer_mod
+        self.real_step = trainer_mod.make_train_step
+        self.real_epoch = trainer_mod.JointTrainer.train_epoch
+        recorder = self
+
+        def make_train_step(model):
+            step = recorder.real_step(model)
+
+            def recorded(state, batch, *args, **kw):
+                if len(recorder.batches) < recorder.keep:
+                    recorder.batches.append(batch.clone())
+                return step(state, batch, *args, **kw)
+            return recorded
+
+        def train_epoch(trainer):
+            before = read_counters()
+            recorder.real_epoch(trainer)
+            trainer.timings[-1]["launches"] = {
+                k: v - before[k] for k, v in read_counters().items()}
+
+        trainer_mod.make_train_step = make_train_step
+        trainer_mod.JointTrainer.train_epoch = train_epoch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.real_step
+        self.mod.JointTrainer.train_epoch = self.real_epoch
+
+    def kept(self, label):
+        """The batches kept; raises unless the steps were seen at all (a
+        step built another way would leave nothing to check)."""
+        if len(self.batches) != self.keep:
+            raise AssertionError(f"{label}: the recorder kept "
+                                 f"{len(self.batches)} batches of the "
+                                 f"steps, expected {self.keep}")
+        return self.batches
+
+
+def _check_celeba_run(label, trainer, want_epochs, mode, device):
+    """The epochs trained, finite curves, and each epoch's launches of
+    K1-K5 against what its steps and evaluations launch."""
+    from ladder_tpu_torch.utils.metrics import BUFFER_NAMES
+    cfg = trainer.config
+    if [t["epoch"] for t in trainer.timings] != list(want_epochs):
+        raise AssertionError(f"{label}: trained epochs "
+                             f"{[t['epoch'] for t in trainer.timings]}, "
+                             f"expected {list(want_epochs)}")
+    for name in BUFFER_NAMES:
+        values = getattr(trainer.metrics, name)
+        if values and not np.isfinite(np.asarray(values, float)).all():
+            raise AssertionError(f"{label}: the {name} curve is not finite")
+    steps, evals = trainer.n_train_iter(), 1 + trainer.n_val_iter()
+    for t in trainer.timings:
+        overlap = t["epoch"] <= cfg["sg_pretraining"]
+        want = expected_epoch_launches(cfg, mode, steps, evals, overlap,
+                                       device)
+        if t["launches"] != want:
+            raise AssertionError(f"{label}: epoch {t['epoch']} launched "
+                                 f"{t['launches']}, expected {want}")
+
+
+def _check_batches(label, seen, records, bs, device):
+    """The first batches the steps of epoch 1 saw: on the device, and equal
+    to the host's read of the same indices."""
+    import torch
+    idx = records.epoch_indices(bs, seed=1)
+    for i, batch in enumerate(seen):
+        if batch.device.type != torch.device(device).type:
+            raise AssertionError(f"{label}: batch {i} lies on "
+                                 f"{batch.device}, not on {device}")
+        want = records.reader.read_batch(idx[i])
+        if not np.array_equal(batch.cpu().numpy(), want):
+            raise AssertionError(f"{label}: batch {i} of epoch 1 differs "
+                                 "from the host's read of its indices")
+
+
+def _mode2_reference_loss(cfg, params, batch, device):
+    """loss_ae of one float32 mode-2 step from params on batch, with the
+    trainer's first noise draws (its generator, seeded as the trainer's,
+    draws nothing before the first step) and epoch 1's GM and flags."""
+    import torch
+    from ladder_tpu_torch.training.losses import identity_gm
+    cfg = dict(cfg, dtype="float32", fused_train_step=2)
+    state, step = _new_state(cfg, 2, params, device)
+    gen = torch.Generator(device=device).manual_seed(int(cfg["seed"]))
+    gm = identity_gm(cfg["n_mixtures"], cfg["representation_size"],
+                     device=device)
+    flags = {"use_sg_prior": 1 <= cfg["sg_pretraining"],
+             "use_mask": 1 >= cfg["use_mask_start"]}
+    lrs = dict.fromkeys(("ae", "sigma", "prior", "inner_sigma"), 0.0)
+    _, out = step(state, batch, gen, gm, flags, lrs, True,
+                  sg_overlap=1 <= cfg["sg_pretraining"])
+    return float(out["ae"]["loss_ae"])
+
+
+def _freeze_and_serve(cfg_path, trainer, work, device, batches, serve_batch):
+    """python -m ladder_tpu_torch.freeze_bn's main over ``batches`` train
+    batches of the trained checkpoint, then an InferenceEngine on that
+    checkpoint with those statistics: reconstruct and encode at
+    serve_batch and at batch 1. Returns the seconds, launches and gaps."""
+    import contextlib
+    import torch
+    from ladder_tpu_torch import freeze_bn
+    from ladder_tpu_torch.serving import InferenceEngine
+
+    buf = io.StringIO()
+    old = os.getcwd()
+    os.chdir(work)
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            rc = freeze_bn.main(["--config", cfg_path, "--batches",
+                                 str(batches), "--device", device])
+    finally:
+        os.chdir(old)
+    seconds = time.perf_counter() - t0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or line["batches"] != batches or len(line["layers"]) != 6:
+        raise AssertionError(f"freeze_bn printed {line}")
+    stats_path = os.path.join(work, line["bn_stats"])
+    cfg = dict(trainer.config)
+    for key in ("checkpoint_dir", "result_dir"):
+        cfg[key] = os.path.join(work, cfg[key])
+    eng = InferenceEngine(cfg, bn_stats_path=stats_path, device=device,
+                          serve_batch=serve_batch)
+    x = trainer.data.test.first_batch(serve_batch)
+    recon = eng.reconstruct(x)
+    recon_one = eng.reconstruct(x[:1])
+    mean, std = eng.encode(x)
+    row_gap = 0.0
+    for i in (0, serve_batch // 2, serve_batch - 1):
+        alone, alone_std = eng.encode(x[i:i + 1])
+        row_gap = max(row_gap, float(np.abs(alone[0] - mean[i]).max()),
+                      float(np.abs(alone_std[0] - std[i]).max()))
+    _sync(device)
+    launches = read_counters()
+    # two decodes (the reconstructions), four norm-chain stages each
+    want = dict.fromkeys(launches, 0)
+    if torch.device(device).type == "cuda":
+        want["norm_chain_fwd"] = 8
+    if launches != want:
+        raise AssertionError(f"freeze and serve launched {launches}, "
+                             f"expected {want}")
+    if not row_gap <= FROZEN_ROW_MAX_ABS:
+        raise AssertionError(f"frozen BN: a row encoded alone differs from "
+                             f"the same row in the batch of {serve_batch} "
+                             f"by {row_gap}")
+    for name, imgs in (("reconstruct", recon), ("reconstruct[1]",
+                                                recon_one)):
+        if not (np.isfinite(imgs).all() and imgs.min() >= 0
+                and imgs.max() <= 1):
+            raise AssertionError(f"frozen BN {name}: not finite in [0, 1]")
+    return {"seconds": seconds, "line": line, "row_gap": row_gap,
+            "launches": launches}
+
+
+def drive_celeba(device, overrides=CELEBA_OVERRIDES,
+                 groups=os.path.join(ROOT, "pretrained_models", "celeba"),
+                 profile_steps=CELEBA_PROFILE_STEPS,
+                 freeze_batches=FREEZE_BATCHES, serve_batch=SERVE_BATCH):
+    """Phase 6. ``python -m ladder_tpu_torch.train`` (its main, in this
+    process) on synthetic CelebA TFRecords from the checkpoint groups in
+    ``groups``: float32 mode 1 for 2 epochs, then resumed to 3; bf16 mode 2
+    for 1 epoch from the same groups, held against a float32 mode-2 step on
+    its first batch; then freeze_bn over the float32 run's checkpoint and
+    frozen-BN serving of it. Every check of the phase; returns the runs,
+    the times and the launches."""
+    import shutil
+    import tempfile
+    import torch
+    from ladder_tpu_torch.utils.checkpoint import load_msgpack
+
+    cfg = celeba_config(overrides)
+    bs = cfg["batch_size"]
+    overlap = None
+    work = tempfile.mkdtemp(prefix="chip_smoke_celeba_")
+    try:
+        raw = dict(cfg, data_path=os.path.join(work, "data") + "/",
+                   load_dir=work + "/")
+        copied_ns = _copy_groups(groups, work, cfg["exp_name"])
+        runs = []
+        for epochs in ((1, 2), (3,)):
+            path = os.path.join(work, f"epochs_{epochs[-1]}.json")
+            with open(path, "w") as f:
+                json.dump(dict(raw, num_epochs=epochs[-1]), f)
+            with _Recorder(CHECKED_BATCHES) as rec:
+                trainer, out, seconds, launches = _run_train_cli(
+                    work, path, device)
+            label = f"celeba float32 run to epoch {epochs[-1]}"
+            if not trainer.data.train.native:
+                raise AssertionError(f"{label}: not the native reader")
+            if epochs[0] == 1:
+                _check_batches(label, rec.kept(label), trainer.data.train,
+                               bs, device)
+            _check_celeba_run(label, trainer, epochs, 1, device)
+            runs.append({"trainer": trainer, "seconds": seconds,
+                         "launches": launches, "epochs": epochs,
+                         "out": out, "label": label})
+        for line in ("Outer VAE model loaded.", "Prior model loaded."):
+            if line not in runs[0]["out"]:
+                raise AssertionError(f"the first run did not print {line!r}"
+                                     ": the checkpoint groups were not read")
+        if "Full train state restored (epoch 2)." not in runs[1]["out"]:
+            raise AssertionError("the second run did not resume from the "
+                                 "full train state of epoch 2")
+        artifacts = _check_artifacts(runs[-1]["trainer"], copied_ns, work,
+                                     w_tol=CELEBA_GM_WEIGHT_SUM_TOL)
+        if artifacts["result_keys"] != sorted(RESULT_KEYS):
+            raise AssertionError(f"result npz keys {artifacts['result_keys']}"
+                                 f" differ from ladder_tpu's {RESULT_KEYS}")
+        trainer = runs[-1]["trainer"]
+        reader_s = []
+        for idx in trainer.data.train.epoch_indices(bs, seed=0)[:16]:
+            t0 = time.perf_counter()
+            trainer.data.train.reader.read_batch(idx)
+            reader_s.append(time.perf_counter() - t0)
+
+        # bf16 mode 2, one epoch from the same groups, in a directory of its
+        # own (its results and checkpoints are relative to it)
+        bf_work = os.path.join(work, "bf16")
+        _copy_groups(groups, bf_work, cfg["exp_name"])
+        path = os.path.join(bf_work, "bf16.json")
+        with open(path, "w") as f:
+            json.dump(dict(raw, load_dir=bf_work + "/", num_epochs=1,
+                           dtype="bfloat16", fused_train_step=2), f)
+        with _Recorder(1) as rec:
+            bf_trainer, out, seconds, launches = _run_train_cli(
+                bf_work, path, device)
+        label = "celeba bf16 mode-2 run"
+        _check_celeba_run(label, bf_trainer, (1,), 2, device)
+        bf16_run = {"trainer": bf_trainer, "seconds": seconds,
+                    "launches": launches, "epochs": (1,), "out": out,
+                    "label": label}
+        params = {**load_msgpack(os.path.join(groups, "vae-model.msgpack")),
+                  **load_msgpack(os.path.join(groups, "prior-model.msgpack"))}
+        ref = _mode2_reference_loss(raw, params, rec.kept(label)[0],
+                                    device)
+        got = bf_trainer.metrics.train_loss[0]
+        if not abs(got - ref) <= BF16_LOSS_RTOL * abs(ref):
+            raise AssertionError(f"bf16 first-step loss {got} vs float32 "
+                                 f"mode 2 {ref}: outside rtol "
+                                 f"{BF16_LOSS_RTOL}")
+        bf16_run["first_loss"], bf16_run["float32_loss"] = got, ref
+        del bf_trainer
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+        serve = _freeze_and_serve(
+            os.path.join(work, "epochs_3.json"), trainer, work, device,
+            freeze_batches, serve_batch)
+
+        if profile_steps and torch.device(device).type == "cuda":
+            # the next epoch's first steps, batches from the prefetch
+            # thread as in training (the trainer's state moves on; every
+            # check above is done)
+            trainer.cur_epoch += 1
+            batches = trainer.train_batches()
+            args = (trainer.generator, trainer._gm_for_step(),
+                    trainer._flags(), trainer._lrs(), trainer._do_prior())
+
+            def steps():
+                for batch in islice(batches, profile_steps):
+                    trainer.train_step(trainer.state, trainer._place(batch),
+                                       *args)
+
+            prof = profile_device(
+                f"{profile_steps} CelebA train steps at batch {bs}, batches "
+                "from the prefetch thread", steps,
+                marks=("norm_chain_fwd", "norm_chain_bwd",
+                       "output_stage_fwd", "output_stage_bwd", "adam_kernel",
+                       "Memcpy HtoD"))
+            del batches
+            if prof is not None:
+                n, us, share = copy_overlap(device_events(prof))
+                overlap = {"copies": n, "copy_us": us, "under_kernels": share}
+                log(f"  the prefetch thread's copies in that window: {n}, "
+                    f"{us:.1f} us, "
+                    + ("not measured" if share is None else
+                       f"{share:.1%} of it while a kernel ran"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"runs": runs, "bf16": bf16_run, "serve": serve,
+            "artifacts": artifacts, "cfg": cfg, "copy_overlap": overlap,
+            "build_seconds": runs[0]["trainer"].data.build_seconds,
+            "reader_s": reader_s}
+
+
+def log_celeba(result, smi):
+    cfg = result["cfg"]
+    bs = cfg["batch_size"]
+    for name, (synth, write) in sorted(result["build_seconds"].items()):
+        log(f"  data: {name} synthesised in {synth:.3f} s, written in "
+            f"{write:.3f} s")
+    reader = sorted(result["reader_s"])
+    log(f"  native reader: {1e3 * statistics.median(reader):.3f} ms per "
+        f"batch of {bs} (median of {len(reader)}, {1e3 * reader[0]:.3f}-"
+        f"{1e3 * reader[-1]:.3f} ms)")
+    for run in result["runs"] + [result["bf16"]]:
+        log(f"  {run['label']} on {smi}: {run['seconds']:.2f} s in all; "
+            f"launches {run['launches']}")
+        _log_epochs(run["trainer"], bs)
+    bf = result["bf16"]
+    log(f"  bf16 first-step loss {bf['first_loss']:.4f} vs float32 mode 2 "
+        f"{bf['float32_loss']:.4f} on the same batch and noise: "
+        f"{abs(bf['first_loss'] / bf['float32_loss'] - 1):.3%} (bound "
+        f"{BF16_LOSS_RTOL:.0%})")
+    serve = result["serve"]
+    log(f"  freeze_bn over {serve['line']['batches']} batches: "
+        f"{serve['seconds']:.2f} s; frozen-BN serving: a row alone vs in "
+        f"the batch, max abs {serve['row_gap']:.3g} (bound "
+        f"{FROZEN_ROW_MAX_ABS}); launches {serve['launches']}")
+    art = result["artifacts"]
+    log(f"  artifacts: GM weights sum {art['w_full_sum']:.7f}, "
+        f"{art['active_mixtures']} active; {len(art['result_keys'])} result "
+        "keys as ladder_tpu's")
 
 
 def times_only(package, cfg, peaks):
@@ -1494,7 +1958,8 @@ def main(argv=None):
         return 1
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("build", "kernels", "serving",
-                                           "training", "mnist", "times"))
+                                           "training", "mnist", "celeba",
+                                           "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -1559,6 +2024,10 @@ def main(argv=None):
         log("== phase 5: training the pretrained mnist_digit model through "
             "the trainer")
         log_mnist(drive_mnist("cuda"), smi)
+        return 0
+    if only == "celeba":
+        log(PHASE6)
+        log_celeba(drive_celeba("cuda"), smi)
         return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
@@ -1637,9 +2106,22 @@ def main(argv=None):
     if mnist_launches["adam_update"] <= 0:
         raise AssertionError("the mnist trainer never launched the Adam "
                              "kernel")
+    del mnist
+    torch.cuda.empty_cache()
+
+    log(PHASE6)
+    celeba = drive_celeba("cuda")
+    log_celeba(celeba, smi)
+    celeba_launches = dict(celeba["serve"]["launches"])
+    for r in celeba["runs"] + [celeba["bf16"]]:
+        celeba_launches = {k: celeba_launches[k] + v
+                           for k, v in r["launches"].items()}
+    missing = [k for k, v in celeba_launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"the CelebA trainer never launched {missing}")
 
     total = {k: serving[k] + training[k] + mnist_launches[k]
-             for k in serving}
+             + celeba_launches[k] for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -1657,6 +2139,7 @@ def main(argv=None):
         entry["launches_serving"] = serving[entry["name"]]
         entry["launches_training"] = training[entry["name"]]
         entry["launches_mnist"] = mnist_launches[entry["name"]]
+        entry["launches_celeba"] = celeba_launches[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

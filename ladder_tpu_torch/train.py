@@ -1,19 +1,20 @@
 """The training CLI of the port:
 
     python -m ladder_tpu_torch.train --config codes/mnist_digit_config.json [--device cuda|cpu]
+    python -m ladder_tpu_torch.train --config demo/celeba_config.json [--device cuda|cpu]
 
 The counterpart of ``train.py --config``: the same JSON schema, the same
 directories and artifacts ({exp}-result.npz, GM_prior_info.npz,
 vae-model / prior-model / train-state .msgpack), the same console lines,
 checkpoint restore before training (a full train state resumes the epoch
-count), then the epoch loop. ``--device`` is cuda unless the caller asks
-for the CPU; without a CUDA device the default fails. As the reference
-does, a missing or unreadable config prints ``missing or invalid
-arguments`` and exits 0.
-
-The mnist families train here; the CelebA trainer is not ported yet
-(ROADMAP.md). The port's trainer does not plot: the config must set
-``"enable_plots": 0``.
+count), then the epoch loop. The data and the trainer follow
+config['exp_name'], as ``train.py`` does: the mnist families train on
+in-memory arrays (data/mnist.py, MNISTTrainer), CelebA on TFRecords
+(data/celeba.py, CelebATrainer). ``--device`` is cuda unless the caller
+asks for the CPU; without a CUDA device the default fails. As the
+reference does, a missing or unreadable config prints ``missing or invalid
+arguments`` and exits 0. The port's trainer does not plot: the config must
+set ``"enable_plots": 0``.
 """
 
 from __future__ import annotations
@@ -42,20 +43,23 @@ def main(argv=None):
         print("missing or invalid arguments: {}".format(e))
         sys.exit(0)
     device = resolve_device(args.device)
-    if config["exp_name"] == "celeba":
-        raise NotImplementedError(
-            "the CelebA trainer is not ported to ladder_tpu_torch yet "
-            "(ROADMAP.md); the mnist families train")
 
     create_dirs([config["result_dir"], config["checkpoint_dir"]])
     save_config(config)
 
-    from ladder_tpu_torch.data.mnist import DataGenerator
     from ladder_tpu_torch.models.builder import make_model
-    from ladder_tpu_torch.training.trainer import MNISTTrainer
 
     t0 = time.perf_counter()
-    data = DataGenerator(config)
+    if config["exp_name"] == "celeba":
+        from ladder_tpu_torch.data.celeba import CelebAData
+        from ladder_tpu_torch.training.celeba_trainer import (
+            CelebATrainer as Trainer,
+        )
+        data = CelebAData(config)
+    else:
+        from ladder_tpu_torch.data.mnist import DataGenerator
+        from ladder_tpu_torch.training.trainer import MNISTTrainer as Trainer
+        data = DataGenerator(config)
     data_seconds = time.perf_counter() - t0
     model = make_model(config, seed=int(config.get("seed", 0)))
     print("Created a VAE model.")
@@ -65,7 +69,7 @@ def main(argv=None):
     if not (config["TRAIN_VAE"] or config["TRAIN_sigma"]
             or config["TRAIN_prior"]):
         return None
-    trainer = MNISTTrainer(model, data, config, device=device)
+    trainer = Trainer(model, data, config, device=device)
     trainer.data_seconds = data_seconds
     if config.get("load_model", 1):
         trainer.restore()

@@ -21,12 +21,25 @@ What differs and why, each named where it lives:
   * metrics stay on the device for the whole epoch and are drained with
     one copy at its end (``_to_host``): a per-step read would put a host
     synchronisation into every step.
-  * the data lives on the device (MNIST is 188 MB at 60,000 images), so a
-    step never waits on a host-to-device copy.
+  * MNIST lives on the device (188 MB at 60,000 images), so a step never
+    waits on a host-to-device copy; CelebA's batches are copied there in
+    the prefetch thread (data/celeba.py). Host batches (CelebA's test and
+    GM-sample batches) are placed by ``_place``.
+  * config['dtype'] = 'bfloat16' runs the conv and dense stacks in bf16
+    and keeps everything the trainer touches in float32, where
+    ``ladder_tpu`` keeps it: the parameters and Adam moments
+    (models/builder.py:51-56 casts only activations and kernels inside the
+    layers, so the gradients, the clip and skip_nonfinite's guard see
+    float32 too), the encoders' heads and so the GM fit's samples
+    (models/celeba.py:66-67, models/inner_vae.py:38-41), the decoder's
+    output and the output stage's l1/l2 sums (ops/pallas_output.py
+    accumulates in float32), and so every metric the recorders read.
   * not ported, and refused at construction rather than skipped: plots
     (config['enable_plots'] must be 0), the sklearn GM backend, a device
     mesh of more than one device. With plots off ``ladder_tpu`` generates
-    no prior samples and no reconstructions, so neither does the port.
+    no prior samples; its test_step still decodes a reconstruction of the
+    test batch (output_test, trainer.py:686-690), which only the plots
+    read, and the port leaves it out.
 """
 
 from __future__ import annotations
@@ -128,8 +141,9 @@ def _refuse_unported(config):
 
 
 class JointTrainer:
-    """Dataset-agnostic core; subclasses provide the batch sources (device
-    tensors [B,H,W,C])."""
+    """Dataset-agnostic core; subclasses provide the batch sources
+    ([B,H,W,C] tensors on the device, or host arrays that ``_place`` moves
+    there)."""
 
     def __init__(self, model, data, config, device="cuda"):
         _refuse_unported(config)
@@ -187,7 +201,26 @@ class JointTrainer:
     def current_lr_ae(self):
         return schedules.lr_ae(self.config, self.cur_epoch)
 
+    def mid_epoch_hook(self, idx_iter, span=1):
+        """After each train step (``ladder_tpu``'s trainer.py:461, called at
+        :329/:339/:349; the port runs one step per batch, so span is 1).
+        ``ladder_tpu``'s CelebA trainer plots reconstructions here at
+        idx_check_point; with plots off, the only mode the port trains in,
+        it returns at once, as ``ladder_tpu``'s does."""
+
+    def epoch_tail_plots(self):
+        """Dataset-specific plots after validation (trainer.py:467); the
+        port plots nothing."""
+
     # ---- epoch-state helpers -----------------------------------------
+    def _place(self, batch):
+        """A batch on the trainer's device: a tensor already there passes
+        through, a host array is copied (``ladder_tpu``'s _place,
+        trainer.py:141, without a mesh)."""
+        if not torch.is_tensor(batch):
+            batch = torch.as_tensor(np.asarray(batch))
+        return batch.to(self.device)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -285,10 +318,11 @@ class JointTrainer:
         for batch in self.train_batches():
             timer.start()
             self.state, out = self.train_step(
-                self.state, batch, self.generator, gm, flags, lrs, do_prior,
-                sg_overlap=sg_ov)
+                self.state, self._place(batch), self.generator, gm, flags,
+                lrs, do_prior, sg_overlap=sg_ov)
             timer.stop(sync_on=out if sync_each else None)
             outs.append(out)
+            self.mid_epoch_hook(len(outs) - 1)
         return outs
 
     def train_epoch(self):
@@ -347,7 +381,8 @@ class JointTrainer:
         run_prior_val = (self.cur_epoch > cfg["sg_pretraining"] - 1
                          and self.prior in PRIORS_WITH_PRIOR_MODEL
                          and self.val_prior_enabled())
-        val_outs = [self.eval_step(batch, self.generator, gm, flags)
+        val_outs = [self.eval_step(self._place(batch), self.generator, gm,
+                                   flags)
                     for batch in self.val_batches()]
         for m in _to_host(val_outs):
             if run_vae_val:
@@ -364,6 +399,7 @@ class JointTrainer:
                       self.metrics.train_loss_ave_epoch[-1],
                       self.metrics.val_loss_ave_epoch[-1]
                       if self.metrics.val_loss_ave_epoch else float("nan")))
+        self.epoch_tail_plots()
 
         self.metrics.save(cfg, self.num_para_list, self.n_train_iter(),
                           self.n_val_iter())
@@ -391,8 +427,14 @@ class JointTrainer:
         device."""
         fn = self.fwd["representation_sample" if space == "t"
                       else "encode_sample"]
-        return torch.cat([fn(batch, self.generator)
-                          for batch in self.sample_batches(n_target)])
+        samples = torch.cat([fn(self._place(batch), self.generator)
+                             for batch in self.sample_batches(n_target)])
+        # the fit runs in float32 and so do the heads, bf16 mode included
+        # (see the module docstring): a sample of another type is a
+        # departure from ladder_tpu's policy, not something to cast away
+        if samples.dtype != torch.float32:
+            raise TypeError(f"GM samples are {samples.dtype}, not float32")
+        return samples
 
     def _report_active(self, w):
         idx = np.where(w >= ACTIVE_WEIGHT_THRESHOLD)[0]
@@ -477,7 +519,7 @@ class JointTrainer:
 
     # ---- test / diagnostics (base.py:944-986) ------------------------
     def test_step(self, batch, print_result=False):
-        m = _to_host(self.eval_step(batch, self.generator,
+        m = _to_host(self.eval_step(self._place(batch), self.generator,
                                     self._gm_for_step(), self._flags()))
         if print_result:
             print("test loss: elbo: {:.4f}, recons_loss_l1: {:.4f}, "

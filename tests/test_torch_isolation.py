@@ -77,6 +77,35 @@ def test_sources_cover_the_mnist_slice():
         assert f"ladder_tpu_torch/{name}" in covered
 
 
+def test_sources_cover_the_celeba_slice():
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("runtime/__init__.py", "data/tfrecord.py", "data/celeba.py",
+                 "training/celeba_trainer.py", "serving/bn_freeze.py",
+                 "freeze_bn.py"):
+        assert f"ladder_tpu_torch/{name}" in covered
+
+
+def test_the_native_reader_is_the_ports_own():
+    """ladder_tpu_torch/runtime holds its own copy of the C++ reader (the
+    same source as ladder_tpu's), imports nothing of ladder_tpu.runtime,
+    and builds its library under ladder_tpu_torch/_build/, never beside
+    ladder_tpu's source."""
+    from ladder_tpu_torch import runtime
+
+    pkg = ROOT / "ladder_tpu_torch"
+    assert runtime.SOURCE == pkg / "runtime" / "tfrecord_reader.cc"
+    assert runtime.LIBRARY.parent == pkg / "_build"
+    theirs = (ROOT / "ladder_tpu" / "runtime" / "tfrecord_reader.cc")
+    code = [ln for ln in runtime.SOURCE.read_text().splitlines()
+            if not ln.startswith("//")]
+    assert code == [ln for ln in theirs.read_text().splitlines()
+                    if not ln.startswith("//")]
+    runtime.load()
+    assert runtime.LIBRARY.is_file()
+    assert "ladder_tpu" not in set(_imported_roots(
+        pkg / "runtime" / "__init__.py"))
+
+
 def test_kernel_sources_include_no_torch_headers():
     """The kernels have a plain C interface: a source that pulled in
     PyTorch's headers would take minutes to compile."""
