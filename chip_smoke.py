@@ -68,11 +68,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 64. Logs the data build, the reader's time per batch, the epochs as
    phase 5 does, freeze_bn's time, and a profile of 10 train steps fed by
    the prefetch thread.
+7. SLP interpolation through ``python -m ladder_tpu_torch.interpolate``'s
+   run() on the card: the pretrained mnist_digit model (linear, then
+   random init from the fitted GM) and the pretrained CelebA-128 model
+   (linear init, on phase 6's TFRecords), each with the accurate GM fit,
+   the two validation embeddings (images 0 and 32), 500 Adam iterations
+   over 8 points and the SLP and SP strips decoded. Checks: finite
+   histories, the linear init's path beating the straight line on neg-LL
+   and the objective, the same optimisation on the CPU from the card's
+   GM, start, end and initial points (its first 20 iterations, its end),
+   the strips finite in [0, 1], and the norm-chain launches of the CelebA
+   decodes against their count. Then the train CLI's main on the
+   pretrained mnist_fashion model for 1 epoch and on a 'GMM'-prior
+   mnist_digit model from a fresh init for 2 epochs: the result npz keys,
+   GM_prior_info.npz, finite curves, each epoch's Adam launches. Logs the
+   fits, the SLP's seconds and its kernels per iteration (a profile of 5
+   iterations), and the runs' epochs.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result. ``--only build|kernels|serving|training|mnist|celeba``
-runs a part of it (for debugging; it then prints no result lines either).
+and prints no result.
+``--only build|kernels|serving|training|mnist|celeba|interp`` runs a part
+of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
 
@@ -133,6 +150,52 @@ BF16_LOSS_RTOL = 0.05
 # code mean and std (the same arithmetic on other batch shapes)
 FROZEN_ROW_MAX_ABS = 1e-4
 CELEBA_GM_WEIGHT_SUM_TOL = 1e-5
+# Phase 7: SLP interpolation (python -m ladder_tpu_torch.interpolate's run)
+# of the pretrained mnist_digit and CelebA-128 models at their published
+# widths, the notebook's path (validation images 0 -> 32, 8 steps, 500
+# Adam iterations), on the demo configs' synthetic data.
+INTERP_ARGS = ("--idx-start", "0", "--idx-end", "32", "--n-step", "8",
+               "--n-iter", "500")
+INTERP_MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 8192,
+                          "synthetic_n_test": 2048}
+INTERP_CELEBA_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 1024,
+                           "synthetic_n_val": 256, "synthetic_n_test": 128}
+INTERP_PROFILE_ITERS = 5
+# The same optimisation on the CPU from the card's GM, start, end and
+# initial points. Before the first update (iteration 0) the objective and
+# its parts agree to rounding: INTERP_START_RTOL relative (the step
+# variance: of the straight line's mean segment). Then, from the straight
+# line, whose segments are equal to rounding, the step variance's gradient
+# takes a direction set by rounding noise, Adam turns each component's
+# sign into a step of lr, and the two runs part at once (from a random
+# init they part once the path's segments have equalised): the mnist
+# model's linear run measured (H100, PERF.md) over its first 20
+# iterations obj 6.0e-3, path length 2.4e-2, neg-LL 1.7e-2 relative and
+# the step variance 3.3e-2 of a mean segment of 0.061 (lr 0.01 is a sixth
+# of it); at the end obj 1.1e-2 and the points 0.30 segments.
+# Held: the first INTERP_CPU_ITERS iterations within INTERP_CPU_RTOL
+# (relative; the step variance of a mean segment), the final objective
+# within INTERP_FINAL_RTOL, the final points within INTERP_FINAL_SEGMENTS
+# mean segments. The iteration where the runs part (a gap over
+# INTERP_PART_RTOL) is printed.
+INTERP_START_RTOL = 1e-5
+INTERP_CPU_ITERS = 20
+INTERP_CPU_RTOL = 1e-1
+INTERP_FINAL_RTOL = 5e-2
+INTERP_FINAL_SEGMENTS = 1.0
+INTERP_PART_RTOL = 1e-4
+# Phase 7's trainer runs of the other priors and family: the pretrained
+# mnist_fashion 'ours' model for 1 epoch on its demo config's synthetic
+# split; a 'GMM'-prior mnist_digit model from a fresh init for 2 epochs on
+# 8,192 synthetic images, so that epoch 2 trains on the jittered EM fit of
+# epoch 1 and writes GM_prior_info.npz.
+FASHION_CONFIG = "demo/mnist_fashion_config.json"
+FASHION_OVERRIDES = {"synthetic_data": 1, "num_epochs": 1,
+                     "enable_plots": 0}
+GMM_OVERRIDES = {"prior": "GMM", "synthetic_data": 1,
+                 "synthetic_n_train": 8192, "synthetic_n_test": 2048,
+                 "num_epochs": 2, "sg_pretraining": 1, "load_model": 0,
+                 "enable_plots": 0}
 # the {exp}-result.npz keys that ladder_tpu writes (ladder_tpu/utils/
 # metrics.py:save, the reference's base.py:791-823); the card's machine has
 # no JAX to ask
@@ -1278,11 +1341,11 @@ class _Tee(io.TextIOBase):
             stream.flush()
 
 
-def mnist_config(overrides=MNIST_OVERRIDES):
-    """The demo's mnist_digit config (the pretrained model's widths) with
+def mnist_config(overrides=MNIST_OVERRIDES, path=MNIST_CONFIG):
+    """The demo's mnist config at path (the pretrained model's widths) with
     the phase's overrides, defaults applied and validated."""
     from ladder_tpu_torch.utils.config import apply_defaults, validate_config
-    with open(os.path.join(ROOT, MNIST_CONFIG)) as f:
+    with open(os.path.join(ROOT, path)) as f:
         cfg = json.load(f)
     cfg.update(overrides)
     return validate_config(apply_defaults(cfg))
@@ -1743,14 +1806,16 @@ def _freeze_and_serve(cfg_path, trainer, work, device, batches, serve_batch):
 def drive_celeba(device, overrides=CELEBA_OVERRIDES,
                  groups=os.path.join(ROOT, "pretrained_models", "celeba"),
                  profile_steps=CELEBA_PROFILE_STEPS,
-                 freeze_batches=FREEZE_BATCHES, serve_batch=SERVE_BATCH):
+                 freeze_batches=FREEZE_BATCHES, serve_batch=SERVE_BATCH,
+                 data_dir=None):
     """Phase 6. ``python -m ladder_tpu_torch.train`` (its main, in this
     process) on synthetic CelebA TFRecords from the checkpoint groups in
     ``groups``: float32 mode 1 for 2 epochs, then resumed to 3; bf16 mode 2
     for 1 epoch from the same groups, held against a float32 mode-2 step on
     its first batch; then freeze_bn over the float32 run's checkpoint and
-    frozen-BN serving of it. Every check of the phase; returns the runs,
-    the times and the launches."""
+    frozen-BN serving of it. The TFRecords are written into ``data_dir``
+    (kept, for phase 7), else into the phase's own directory. Every check
+    of the phase; returns the runs, the times and the launches."""
     import shutil
     import tempfile
     import torch
@@ -1761,7 +1826,8 @@ def drive_celeba(device, overrides=CELEBA_OVERRIDES,
     overlap = None
     work = tempfile.mkdtemp(prefix="chip_smoke_celeba_")
     try:
-        raw = dict(cfg, data_path=os.path.join(work, "data") + "/",
+        raw = dict(cfg, data_path=os.path.join(data_dir or work, "data")
+                   + "/",
                    load_dir=work + "/")
         copied_ns = _copy_groups(groups, work, cfg["exp_name"])
         runs = []
@@ -1901,6 +1967,344 @@ def log_celeba(result, smi):
         "keys as ladder_tpu's")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: SLP interpolation of the pretrained models, and trainer runs of
+# another family and another prior
+# ---------------------------------------------------------------------------
+
+PHASE7 = ("== phase 7: SLP interpolation of the pretrained mnist_digit and "
+          "CelebA-128 models, and the fashion and GMM-prior trainer runs")
+
+
+def _demo_config(path, overrides, load_dir, work):
+    """The demo config at path with overrides, through the demo's own
+    process_config, its checkpoints read from load_dir and its results
+    written under work."""
+    from ladder_tpu_torch.utils.config import create_dirs, process_config
+    with open(os.path.join(ROOT, path)) as f:
+        raw = json.load(f)
+    raw.update(overrides, load_dir=load_dir.rstrip("/") + "/")
+    os.makedirs(work, exist_ok=True)
+    tmp = os.path.join(work, os.path.basename(path))
+    with open(tmp, "w") as f:
+        json.dump(raw, f)
+    cfg = process_config(tmp)
+    cfg["result_dir"] = os.path.join(work, "result") + "/"
+    cfg["summary_dir"] = os.path.join(work, "summary") + "/"
+    create_dirs([cfg["result_dir"]])
+    return cfg
+
+
+def expected_interp_launches(cfg, n_embeddings, n_strips, device):
+    """Launches of the demo's decodes: each embedding decodes its sampled
+    z and, with an inner VAE, its t-mean; each strip is one decode; a
+    CelebA decode runs four norm-chain stages, an mnist one none."""
+    import torch
+    out = dict.fromkeys(kernel_counters(), 0)
+    if cfg["exp_name"] == "celeba" and torch.device(device).type == "cuda":
+        per = 2 if cfg["prior"] in ("ours", "hierarchical") else 1
+        out["norm_chain_fwd"] = 4 * (per * n_embeddings + n_strips)
+    return out
+
+
+def _check_history(label, hist, improves):
+    for key, values in hist.items():
+        if not np.isfinite(values).all():
+            raise AssertionError(f"{label}: the {key} history is not finite")
+    if improves and not (hist["neg_ll"][-1] < hist["neg_ll"][0]
+                         and hist["obj"][-1] < hist["obj"][0]):
+        raise AssertionError(
+            f"{label}: the path does not beat the straight line: neg-LL "
+            f"{hist['neg_ll'][0]} -> {hist['neg_ll'][-1]}, obj "
+            f"{hist['obj'][0]} -> {hist['obj'][-1]}")
+
+
+def against_cpu(label, cfg, gm, start, end, init_pts, pts, hist, n_iter):
+    """The same optimisation on the CPU from the card's GM, start, end and
+    initial points (host copies): the gaps of the first INTERP_CPU_ITERS
+    iterations, of the last, and of the final points, each checked; the
+    iteration where the two runs part."""
+    import torch
+    from ladder_tpu_torch.interp import optimise_slp, prior_logpdf_fn
+    host = [torch.as_tensor(a).detach().cpu() for a in gm]
+    log_prob = prior_logpdf_fn(cfg, gm=host)
+    cpu_pts, cpu_hist = optimise_slp(
+        torch.as_tensor(np.asarray(init_pts)), torch.as_tensor(start),
+        torch.as_tensor(end), log_prob, n_iter=n_iter)
+    segment = float(hist["path_length"][0]) / (len(init_pts) + 1)
+    rel = {k: np.abs(hist[k] - cpu_hist[k]) / np.abs(cpu_hist[k])
+           for k in ("obj", "path_length", "neg_ll")}
+    step_var = np.abs(hist["step_var"] - cpu_hist["step_var"]) / segment
+    first = slice(0, INTERP_CPU_ITERS)
+    start_gaps = {k: float(v[0]) for k, v in rel.items()}
+    start_gaps["step_var"] = float(step_var[0])
+    gaps = {k: float(v[first].max()) for k, v in rel.items()}
+    gaps["step_var"] = float(step_var[first].max())
+    parted = np.flatnonzero(np.maximum.reduce(list(rel.values()))
+                            > INTERP_PART_RTOL)
+    out = {"start": start_gaps, "first": gaps,
+           "parts_at": int(parted[0]) if len(parted) else None,
+           "final_obj": float(rel["obj"][-1]),
+           "final_points": float(np.abs(np.asarray(pts)
+                                        - cpu_pts.numpy()).max()),
+           "segment": segment}
+    log(f"  {label}: card vs CPU before the first update "
+        + ", ".join(f"{k} {v:.3g}" for k, v in start_gaps.items())
+        + f" (bound {INTERP_START_RTOL}); over the first "
+        f"{INTERP_CPU_ITERS} iterations "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (bound {INTERP_CPU_RTOL}); the runs part at iteration "
+        f"{out['parts_at']} (a gap over {INTERP_PART_RTOL}); final obj "
+        f"{out['final_obj']:.3g} (bound {INTERP_FINAL_RTOL}), final points "
+        f"{out['final_points']:.4g} against a mean segment of "
+        f"{segment:.4g} (bound {INTERP_FINAL_SEGMENTS} segments)")
+    if max(start_gaps.values()) > INTERP_START_RTOL:
+        raise AssertionError(f"{label}: the objective at the initial points "
+                             f"differs from the CPU's: {start_gaps}")
+    if max(gaps.values()) > INTERP_CPU_RTOL:
+        raise AssertionError(f"{label}: the card's first {INTERP_CPU_ITERS}"
+                             f" iterations differ from the CPU's: {gaps}")
+    if (out["final_obj"] > INTERP_FINAL_RTOL
+            or out["final_points"] > INTERP_FINAL_SEGMENTS * segment):
+        raise AssertionError(f"{label}: the card's path ends away from the "
+                             f"CPU's: {out}")
+    return out
+
+
+def _launches_per_iteration(label, init_pts, start, end, log_prob, iters):
+    """Kernels and copies per SLP iteration, from a profile of ``iters``
+    iterations on the card (None where the profile saw no device time)."""
+    import torch
+    from ladder_tpu_torch.interp import optimise_slp
+    prof = profile_device(f"{iters} SLP iterations ({label})",
+                          lambda: optimise_slp(init_pts, start, end,
+                                               log_prob, n_iter=iters))
+    if prof is None:
+        return None
+    n = sum(evt.count for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.self_device_time_total > 0)
+    return n / iters
+
+
+def interp_model(label, cfg, argv, device, random_init=False,
+                 profile_iters=INTERP_PROFILE_ITERS):
+    """python -m ladder_tpu_torch.interpolate's run() for one model on
+    ``device`` (the linear init), then, if asked, the random init from the
+    fitted GM; every check of the phase for the model. Returns the runs'
+    numbers."""
+    import torch
+    from ladder_tpu_torch.interp import interpolate
+    from ladder_tpu_torch.interpolate import get_args, prior_sample_fn, run
+    from ladder_tpu_torch.utils.device import float32_exact
+
+    args = get_args(list(argv) + ["--device", device])
+    reset_counters()
+    t0 = time.perf_counter()
+    res = run(cfg, args, device)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    want = expected_interp_launches(cfg, 2, 2, device)
+    if launches != want:
+        raise AssertionError(f"{label}: the demo launched {launches}, "
+                             f"expected {want}")
+    trainer = res["trainer"]
+    gm = trainer.gm_final
+    _check_history(f"{label}, linear init", res["hist"], improves=True)
+    for name, strip in res["strips"].items():
+        if (strip.shape[0] != args.n_step + 2 or not np.isfinite(strip).all()
+                or strip.min() < 0 or strip.max() > 1):
+            raise AssertionError(f"{label}: the {name} strip is not "
+                                 f"{args.n_step + 2} finite images in "
+                                 "[0, 1]")
+    out = {"label": label, "seconds": seconds, "fit": res["fit"],
+           "slp_seconds": res["slp_seconds"], "launches": launches,
+           "n_iter": args.n_iter,
+           "final": {k: (float(v[0]), float(v[-1]))
+                     for k, v in res["hist"].items()},
+           "linear": against_cpu(f"{label}, linear init", cfg, gm,
+                                 res["start"], res["end"], res["sp"],
+                                 res["slp"], res["hist"], args.n_iter)}
+    dev = trainer.device
+    start = torch.as_tensor(res["start"], device=dev)
+    end = torch.as_tensor(res["end"], device=dev)
+    if random_init:
+        t0 = time.perf_counter()
+        with float32_exact():
+            slp, init_pts, hist = interpolate(
+                cfg, start, end, res["log_prob"], n_step=args.n_step,
+                n_iter=args.n_iter, init="random",
+                generator=trainer.generator,
+                sample_fn=prior_sample_fn(cfg, trainer))
+        out["random_slp_seconds"] = time.perf_counter() - t0
+        _check_history(f"{label}, random init", hist, improves=False)
+        out["random"] = against_cpu(
+            f"{label}, random init", cfg, gm, res["start"], res["end"],
+            init_pts.cpu().numpy(), slp.cpu().numpy(), hist, args.n_iter)
+        out["random_final"] = {k: (float(v[0]), float(v[-1]))
+                               for k, v in hist.items()}
+    if profile_iters and dev.type == "cuda":
+        with float32_exact():
+            out["launches_per_iter"] = _launches_per_iteration(
+                label, torch.as_tensor(res["sp"], device=dev), start, end,
+                res["log_prob"], profile_iters)
+    return out
+
+
+def _check_epoch_adam_launches(label, trainer, updates):
+    """Each epoch's Adam launches: one per updated group per step."""
+    groups = sum(1 for n in updates.values() if n)
+    cuda = trainer.device.type == "cuda"
+    for t in trainer.timings:
+        want = groups * trainer.n_train_iter() if cuda else 0
+        if t["launches"]["adam_update"] != want:
+            raise AssertionError(f"{label}: epoch {t['epoch']} made "
+                                 f"{t['launches']['adam_update']} Adam "
+                                 f"launches, expected {want}")
+
+
+def _train_run(label, cfg, work, device, epochs, t_before):
+    """The train CLI's main on cfg in work, every epoch's launches
+    recorded; the run's checks (the epochs, finite curves, every updated
+    group in every step, an Adam launch per group update, the result npz
+    keys as ladder_tpu's)."""
+    path = os.path.join(work, f"{label.replace(' ', '_')}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    with _Recorder(0):
+        trainer, out, seconds, launches = _run_train_cli(work, path, device)
+    updates = _check_mnist_run(label, trainer, launches, epochs, t_before)
+    _check_epoch_adam_launches(label, trainer, updates)
+    result_dir = os.path.join(work, trainer.config["result_dir"])
+    with np.load(os.path.join(result_dir,
+                              f"{cfg['exp_name']}-result.npz")) as r:
+        keys = sorted(r.files)
+    if keys != sorted(RESULT_KEYS):
+        raise AssertionError(f"{label}: result npz keys {keys} differ from "
+                             f"ladder_tpu's {RESULT_KEYS}")
+    return {"label": label, "trainer": trainer, "seconds": seconds,
+            "launches": launches, "group_updates": updates, "out": out,
+            "result_dir": result_dir, "epochs": epochs}
+
+
+def drive_other_trainers(device, fashion_overrides=FASHION_OVERRIDES,
+                         gmm_overrides=GMM_OVERRIDES,
+                         fashion_groups=os.path.join(
+                             ROOT, "pretrained_models", "mnist_fashion")):
+    """Phase 7's trainer runs: the pretrained mnist_fashion 'ours' groups
+    through the train CLI's main for 1 epoch, and a 'GMM'-prior
+    mnist_digit model from a fresh init for 2 epochs, whose last epoch
+    writes GM_prior_info.npz."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_priors_")
+    try:
+        fashion_work = os.path.join(work, "fashion")
+        _copy_groups(fashion_groups, fashion_work, "mnist_fashion")
+        fashion = _train_run(
+            "mnist_fashion ours run",
+            mnist_config(dict(fashion_overrides, load_dir=fashion_work + "/"),
+                         FASHION_CONFIG),
+            fashion_work, device, (1,), {})
+        for line in ("Outer VAE model loaded.", "Prior model loaded."):
+            if line not in fashion["out"]:
+                raise AssertionError(f"the fashion run did not print "
+                                     f"{line!r}: the groups were not read")
+        gmm_work = os.path.join(work, "gmm")
+        os.makedirs(gmm_work)
+        gmm = _train_run(
+            "mnist_digit GMM run",
+            mnist_config(dict(gmm_overrides, load_dir=gmm_work + "/")),
+            gmm_work, device, (1, 2), {})
+        trainer = gmm["trainer"]
+        modes = [[g["mode"] for g in t["gm"]] for t in trainer.timings]
+        if modes != [["fast"], ["accurate"]]:
+            raise AssertionError(f"GMM run: GM fits {modes}, expected a fast"
+                                 " EM fit after epoch 1, the accurate one "
+                                 "after epoch 2")
+        with np.load(os.path.join(gmm["result_dir"],
+                                  "GM_prior_info.npz")) as info:
+            w_sum = float(info["w_full"].sum())
+            gmm["gm_files"] = sorted(info.files)
+            gmm["gm_shapes"] = {k: info[k].shape for k in info.files}
+        if abs(w_sum - 1.0) > GM_WEIGHT_SUM_TOL:
+            raise AssertionError(f"GMM run: GM_prior_info.npz weights sum "
+                                 f"to {w_sum}")
+        gmm["w_full_sum"] = w_sum
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"fashion": fashion, "gmm": gmm}
+
+
+def drive_interp(device, mnist_overrides=INTERP_MNIST_OVERRIDES,
+                 celeba_overrides=INTERP_CELEBA_OVERRIDES,
+                 mnist_groups=os.path.join(ROOT, "pretrained_models"),
+                 celeba_groups=os.path.join(ROOT, "pretrained_models"),
+                 argv=INTERP_ARGS, data_dir=None,
+                 profile_iters=INTERP_PROFILE_ITERS):
+    """Phase 7's interpolations: the pretrained mnist_digit model (linear
+    then random init) and the pretrained CelebA-128 model (linear init),
+    on the demo configs' synthetic data; CelebA's TFRecords are read from
+    data_dir where phase 6 wrote them, else written anew."""
+    import shutil
+    import tempfile
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_interp_")
+    try:
+        mnist_cfg = _demo_config(MNIST_CONFIG, mnist_overrides, mnist_groups,
+                                 os.path.join(work, "mnist"))
+        mnist = interp_model("mnist_digit", mnist_cfg, argv, device,
+                             random_init=True, profile_iters=profile_iters)
+        del mnist_cfg
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        celeba_cfg = _demo_config(
+            CONFIG, dict(celeba_overrides, data_path=os.path.join(
+                data_dir or work, "data") + "/"),
+            celeba_groups, os.path.join(work, "celeba"))
+        celeba = interp_model("CelebA-128", celeba_cfg, argv, device,
+                              profile_iters=profile_iters)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"mnist": mnist, "celeba": celeba}
+
+
+def log_interp(result, others, smi):
+    for run in (result["mnist"], result["celeba"]):
+        fit = run["fit"]
+        log(f"  {run['label']} on {smi}: run() {run['seconds']:.2f} s in "
+            f"all; accurate GM fit over {fit['samples']} samples: "
+            f"{fit['n_iter']} iterations "
+            f"({'converged' if fit['converged'] else 'not converged'}), "
+            f"{fit['seconds']:.3f} s; {run['n_iter']} SLP iterations "
+            f"{run['slp_seconds']:.3f} s on the host clock "
+            f"({1e3 * run['slp_seconds'] / run['n_iter']:.2f} ms an "
+            "iteration)"
+            + (f", random init {run['random_slp_seconds']:.3f} s"
+               if "random_slp_seconds" in run else "")
+            + (f"; {run['launches_per_iter']:.1f} kernels and copies an "
+               "iteration (profile)" if run.get("launches_per_iter")
+               else "") + f"; launches {run['launches']}")
+        log("    linear init, first -> last iteration: " + ", ".join(
+            f"{k} {a:.4f} -> {b:.4f}" for k, (a, b) in run["final"].items()))
+        if "random_final" in run:
+            log("    random init, first -> last iteration: " + ", ".join(
+                f"{k} {a:.4f} -> {b:.4f}"
+                for k, (a, b) in run["random_final"].items()))
+    for key in ("fashion", "gmm"):
+        run = others[key]
+        log(f"  {run['label']} on {smi}: {run['seconds']:.2f} s in all; "
+            f"launches {run['launches']}; group updates "
+            f"{run['group_updates']}")
+        _log_epochs(run["trainer"], run["trainer"].config["batch_size"])
+    gmm = others["gmm"]
+    log(f"  GMM run: GM_prior_info.npz {gmm['gm_shapes']}, weights sum "
+        f"{gmm['w_full_sum']:.7f}")
+
+
 def times_only(package, cfg, peaks):
     """``--only times``: phase 2's checks and times of the norm-chain
     forward at the stage shapes and of the Adam update over the
@@ -1959,7 +2363,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("build", "kernels", "serving",
                                            "training", "mnist", "celeba",
-                                           "times"))
+                                           "interp", "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -2028,6 +2432,11 @@ def main(argv=None):
     if only == "celeba":
         log(PHASE6)
         log_celeba(drive_celeba("cuda"), smi)
+        return 0
+    if only == "interp":
+        log(PHASE7)
+        interp = drive_interp("cuda")
+        log_interp(interp, drive_other_trainers("cuda"), smi)
         return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
@@ -2109,19 +2518,43 @@ def main(argv=None):
     del mnist
     torch.cuda.empty_cache()
 
-    log(PHASE6)
-    celeba = drive_celeba("cuda")
-    log_celeba(celeba, smi)
-    celeba_launches = dict(celeba["serve"]["launches"])
-    for r in celeba["runs"] + [celeba["bf16"]]:
-        celeba_launches = {k: celeba_launches[k] + v
-                           for k, v in r["launches"].items()}
-    missing = [k for k, v in celeba_launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"the CelebA trainer never launched {missing}")
+    import shutil
+    import tempfile
+    # phase 6's synthetic CelebA TFRecords, read again by phase 7
+    celeba_data = tempfile.mkdtemp(prefix="chip_smoke_celeba_data_")
+    try:
+        log(PHASE6)
+        celeba = drive_celeba("cuda", data_dir=celeba_data)
+        log_celeba(celeba, smi)
+        celeba_launches = dict(celeba["serve"]["launches"])
+        for r in celeba["runs"] + [celeba["bf16"]]:
+            celeba_launches = {k: celeba_launches[k] + v
+                               for k, v in r["launches"].items()}
+        missing = [k for k, v in celeba_launches.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"the CelebA trainer never launched "
+                                 f"{missing}")
+        del celeba
+        torch.cuda.empty_cache()
+
+        log(PHASE7)
+        interp = drive_interp("cuda", data_dir=celeba_data)
+    finally:
+        shutil.rmtree(celeba_data, ignore_errors=True)
+    others = drive_other_trainers("cuda")
+    log_interp(interp, others, smi)
+    interp_launches = {k: interp["mnist"]["launches"][k]
+                       + interp["celeba"]["launches"][k] for k in serving}
+    prior_launches = {k: others["fashion"]["launches"][k]
+                      + others["gmm"]["launches"][k] for k in serving}
+    if (interp_launches["norm_chain_fwd"] <= 0
+            or prior_launches["adam_update"] <= 0):
+        raise AssertionError("phase 7 never launched the norm-chain forward "
+                             "(CelebA decodes) or the Adam update (training)")
 
     total = {k: serving[k] + training[k] + mnist_launches[k]
-             + celeba_launches[k] for k in serving}
+             + celeba_launches[k] + interp_launches[k] + prior_launches[k]
+             for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -2140,6 +2573,8 @@ def main(argv=None):
         entry["launches_training"] = training[entry["name"]]
         entry["launches_mnist"] = mnist_launches[entry["name"]]
         entry["launches_celeba"] = celeba_launches[entry["name"]]
+        entry["launches_interp"] = interp_launches[entry["name"]]
+        entry["launches_priors"] = prior_launches[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

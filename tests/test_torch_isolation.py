@@ -169,3 +169,56 @@ def test_the_kernel_modules_share_the_build_helper():
     assert len({lib.path() for lib in libs}) == 3
     assert all(lib.source.is_file() and lib.flags == _build.NVCC_FLAGS
                for lib in libs)
+
+
+def test_sources_cover_the_interpolation_slice():
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("interp.py", "demo_tools.py", "interpolate.py",
+                 "utils/plotting.py"):
+        assert f"ladder_tpu_torch/{name}" in covered
+
+
+def _module_level_imports(path):
+    """The roots a module imports when it is imported: its top-level
+    statements, with the bodies of top-level if/try blocks, not its
+    functions or classes."""
+    body = list(ast.parse(path.read_text(), filename=str(path)).body)
+    while body:
+        node = body.pop()
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                body.extend(getattr(node, field, []))
+        elif isinstance(node, ast.ExceptHandler):
+            body.extend(node.body)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_matplotlib_is_imported_inside_functions_only(path):
+    """The card's machine has no matplotlib: the demo's plot writers
+    import it when they run, never when their module is imported."""
+    assert "matplotlib" not in set(_module_level_imports(path))
+
+
+def test_package_imports_without_matplotlib():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import ladder_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ladder_tpu_torch.__path__,\n"
+        "                               'ladder_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from ladder_tpu_torch.utils.plotting import pyplot\n"
+        "try:\n"
+        "    pyplot()\n"
+        "except ImportError as e:\n"
+        "    print(e)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "matplotlib" in proc.stdout
