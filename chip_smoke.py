@@ -84,11 +84,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    GM_prior_info.npz, finite curves, each epoch's Adam launches. Logs the
    fits, the SLP's seconds and its kernels per iteration (a profile of 5
    iterations), and the runs' epochs.
+8. The utilities: the device half of the trainers' prior sampling (100
+   codes, one decode) for the five priors on the mnist_digit demo config
+   (the pretrained groups where the prior has them, a seeded init for the
+   vampPrior pseudo-inputs, a seeded z-space GM for 'GMM') and for
+   CelebA-128 'ours' with its accurate GM, each held against the same
+   draws decoded on the CPU; torch.export of every path of the pretrained
+   CelebA-128 (float32, TF32 off, batch 64) and mnist_digit engines,
+   loaded back and held against the live engines, the norm-chain launches
+   of the exported CelebA decodes counted; one mnist_digit epoch through
+   the train CLI with async_checkpoint 1, its files against a synchronous
+   save of the same state byte for byte; the FID of two synthetic CelebA
+   sets of 256 images through the pretrained encoder, card against CPU;
+   and the ImportError of a trainer with enable_plots 1 and no
+   matplotlib. Logs the export time, the loaded paths' and the engine's
+   latencies, the time a save blocks the epoch both ways, and the FID.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result.
-``--only build|kernels|serving|training|mnist|celeba|interp`` runs a part
+``--only build|kernels|serving|training|mnist|celeba|interp|utils`` runs a part
 of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
@@ -210,6 +225,38 @@ RESULT_KEYS = (
     "vampPrior_crossEntropy_z_train_prior",
     "vampPrior_crossEntropy_z_val_prior", "sigma_regularisor_train",
     "sigma_regularisor_val", "num_para_VAE", "sigma")
+# Phase 8: the utilities. Prior samples (the device half of
+# generate_samples_from_prior: 100 codes, one decode) of the five priors on
+# the mnist_digit demo config at epoch 20 (sg_pretraining 10, accurate_fit
+# 10, num_epochs 0: 'ours' and 'GMM' sample their accurate fit) and of
+# CelebA-128 'ours' at epoch 12 (sg_pretraining 10, accurate_fit 3), held
+# against the same draws decoded on the CPU; the exported paths of the
+# CelebA-128 and mnist_digit engines against the live engines; one
+# mnist_digit epoch with asynchronous checkpoints on 8,192 synthetic images;
+# the FID of two synthetic CelebA sets of 256 images through the pretrained
+# encoder, card against CPU.
+UTILS_MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 512,
+                         "synthetic_n_test": 256, "enable_plots": 0}
+UTILS_CELEBA_OVERRIDES = {"enable_plots": 0}
+UTILS_MNIST_EPOCH = 20
+UTILS_MNIST_NAMES = {
+    "ours": "generated_samples_prior_20_accurate-GM.pdf",
+    "GMM": "generated_samples_prior_20_accurate-GM.pdf",
+    "standard_gaussian": "generated_samples_prior_20.pdf",
+    "hierarchical": "generated_samples_prior_20.pdf",
+    "vampPrior": "generated_samples_prior_20.pdf"}
+UTILS_CELEBA_EPOCH = 12
+UTILS_CELEBA_NAME = "generated_samples_prior_12_accurate-GM.pdf"
+# card vs CPU decodes of the same codes (GPU_CPU_MAX_ABS's reasoning)
+SAMPLE_CPU_MAX_ABS = 1e-4
+# an exported path vs the live engine, the same device and input
+EXPORT_MAX_ABS = 1e-5
+UTILS_LATENCY_REPEATS = 5
+ASYNC_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 8192,
+                   "synthetic_n_test": 2048, "num_epochs": 1,
+                   "enable_plots": 0, "async_checkpoint": 1}
+FID_IMAGES = 256
+FID_RTOL = 1e-4
 # GM_prior_info.npz's full weights sum to one (float32 sums of 50 terms)
 GM_WEIGHT_SUM_TOL = 1e-4
 SERVE_BATCH = 64
@@ -2305,6 +2352,451 @@ def log_interp(result, others, smi):
         f"{gmm['w_full_sum']:.7f}")
 
 
+PHASE8 = ("== phase 8: prior sampling, export, asynchronous checkpoints, FID "
+          "and plots without matplotlib")
+
+
+def _sampling_trainer(cfg, groups, gm, device, seed=0):
+    """A JointTrainer (it reads no data) of cfg on device: a seeded init,
+    then the checkpoint groups of ``groups`` that the prior has (the
+    'vae-model' group always, 'prior-model' for an inner VAE); gm (w, m, K)
+    as the fast and the accurate fit."""
+    import torch
+    from ladder_tpu_torch.models.builder import (PRIORS_WITH_INNER_VAE,
+                                                 make_model)
+    from ladder_tpu_torch.training.trainer import JointTrainer
+    from ladder_tpu_torch.utils.checkpoint import load_msgpack
+
+    model = make_model(cfg, seed=seed)
+    params = model.flax_params()
+    names = ["vae-model"] + (["prior-model"] if cfg["prior"]
+                             in PRIORS_WITH_INNER_VAE else [])
+    for name in names:
+        params.update(load_msgpack(os.path.join(groups, f"{name}.msgpack")))
+    model.load_flax_params(params)
+    trainer = JointTrainer(model, None, cfg, device=device)
+    trainer.gm_fast = trainer.gm_final = tuple(
+        torch.tensor(np.asarray(a, np.float32), device=trainer.device)
+        for a in gm)
+    return trainer
+
+
+def _gm_info(path):
+    with np.load(path) as info:
+        return tuple(info[k] for k in ("w_full", "m_full", "K_full"))
+
+
+def _seeded_gm(k, d, seed):
+    """A mixture of k components in d dimensions, made from seed."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((k, d, d)) / np.sqrt(d)
+    return (rng.dirichlet(np.ones(k)), rng.standard_normal((k, d)),
+            a @ a.transpose(0, 2, 1) + 0.1 * np.eye(d))
+
+
+def sample_prior(label, cfg, groups, gm, epoch, want_name, device):
+    """The device half of generate_samples_from_prior at ``epoch`` on
+    device, then the same draws through a CPU trainer of the same weights:
+    the images' shape and filename, finite, within SAMPLE_CPU_MAX_ABS of
+    the CPU's; the norm-chain launches of the call; the time of the call
+    and of a second one."""
+    from ladder_tpu_torch.ops.norm_chain import fused_instnorm_style_lrelu
+
+    trainer = _sampling_trainer(cfg, groups, gm, device)
+    trainer.cur_epoch = epoch
+    seen = {}
+    real_draws = trainer.prior_draws
+
+    def prior_draws(*args, **kw):
+        seen["draws"] = real_draws(*args, **kw)
+        return seen["draws"]
+
+    trainer.prior_draws = prior_draws
+    before = fused_instnorm_style_lrelu.launches
+    t0 = time.perf_counter()
+    images, filename = trainer.prior_samples()
+    seconds = time.perf_counter() - t0
+    launches = fused_instnorm_style_lrelu.launches - before
+    hw = (cfg["dim_input_x"], cfg["dim_input_y"], cfg["dim_input_channel"])
+    if images.shape != (100,) + hw or not np.isfinite(images).all():
+        raise AssertionError(f"{label}: prior samples {images.shape}, or "
+                             "not finite")
+    if os.path.basename(filename) != want_name:
+        raise AssertionError(f"{label}: filename {filename}, expected "
+                             f"{want_name}")
+    # again: the first call pays for the decoder's first use at batch 100
+    before_again = fused_instnorm_style_lrelu.launches
+    t0 = time.perf_counter()
+    trainer.prior_draws = real_draws
+    trainer.prior_samples()
+    seconds_again = time.perf_counter() - t0
+    if fused_instnorm_style_lrelu.launches - before_again != launches:
+        raise AssertionError(f"{label}: the second call launched the "
+                             "norm-chain forward another number of times")
+    cpu = _sampling_trainer(cfg, groups, gm, "cpu")
+    cpu.model.load_flax_params(trainer.model.flax_params())
+    codes = cpu.codes_from_draws({k: v.cpu()
+                                  for k, v in seen["draws"].items()})
+    gap = float(np.abs(images - cpu.fwd["decode"](codes).numpy()).max())
+    if not gap <= SAMPLE_CPU_MAX_ABS:
+        raise AssertionError(f"{label}: card vs CPU max abs {gap}")
+    return {"label": label, "shape": images.shape,
+            "name": os.path.basename(filename), "cpu_max_abs": gap,
+            "seconds": seconds, "seconds_again": seconds_again,
+            "launches": launches}
+
+
+def drive_sampling(device, mnist_overrides=UTILS_MNIST_OVERRIDES,
+                   celeba_overrides=UTILS_CELEBA_OVERRIDES,
+                   mnist_groups=os.path.join(ROOT, "pretrained_models",
+                                             "mnist_digit"),
+                   celeba_groups=os.path.join(ROOT, "pretrained_models",
+                                              "celeba")):
+    """Prior samples of the five priors on the mnist_digit demo config
+    (the pretrained groups where the prior has them, a seeded init for the
+    vampPrior pseudo-inputs; the pretrained t-space GM, a seeded z-space
+    GM for 'GMM'), then CelebA-128 'ours' with its accurate GM. A CelebA
+    decode launches the norm-chain forward 4 times, an mnist one never."""
+    import shutil
+    import tempfile
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    runs = []
+    work = tempfile.mkdtemp(prefix="chip_smoke_sampling_")
+    try:
+        t_gm = _gm_info(os.path.join(mnist_groups, "GM_prior_info.npz"))
+        for prior in ("ours", "GMM", "standard_gaussian", "hierarchical",
+                      "vampPrior"):
+            cfg = _demo_config(MNIST_CONFIG, dict(mnist_overrides,
+                                                  prior=prior),
+                               os.path.dirname(mnist_groups),
+                               os.path.join(work, prior))
+            gm = (_seeded_gm(cfg["n_mixtures"], cfg["code_size"], 8)
+                  if prior == "GMM" else t_gm)
+            runs.append(sample_prior(f"mnist_digit {prior}", cfg,
+                                     mnist_groups, gm, UTILS_MNIST_EPOCH,
+                                     UTILS_MNIST_NAMES[prior], device))
+            if runs[-1]["launches"]:
+                raise AssertionError(f"{prior}: an mnist decode launched "
+                                     "the norm-chain forward")
+        cfg = _demo_config(CONFIG, celeba_overrides,
+                           os.path.dirname(celeba_groups),
+                           os.path.join(work, "celeba"))
+        runs.append(sample_prior(
+            "CelebA-128 ours", cfg, celeba_groups,
+            _gm_info(os.path.join(celeba_groups, "GM_prior_info.npz")),
+            UTILS_CELEBA_EPOCH, UTILS_CELEBA_NAME, device))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if runs[-1]["launches"] != (4 if cuda else 0):
+        raise AssertionError(f"CelebA prior samples: "
+                             f"{runs[-1]['launches']} norm-chain launches, "
+                             "expected 4 (one decode)")
+    return runs
+
+
+def _median_ms(fn, repeats):
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def export_engine(label, cfg, device, out_dir, serve_batch=SERVE_BATCH,
+                  repeats=UTILS_LATENCY_REPEATS):
+    """Export every path of an engine of cfg on device, load each back and
+    hold it against the live engine on the same input (EXPORT_MAX_ABS);
+    count the norm-chain launches of each loaded call (4 for a CelebA
+    decoding path on a card) and time both, a median of ``repeats``."""
+    import torch
+    from ladder_tpu_torch.ops.norm_chain import fused_instnorm_style_lrelu
+    from ladder_tpu_torch.serving import InferenceEngine
+    from ladder_tpu_torch.serving.export import (export_inference,
+                                                 load_exported)
+
+    eng = InferenceEngine(cfg, device=device, serve_batch=serve_batch,
+                          buckets=())
+    t0 = time.perf_counter()
+    paths = export_inference(eng, out_dir)
+    export_s = time.perf_counter() - t0
+    rng = np.random.default_rng(9)
+    x = rng.random((serve_batch, cfg["dim_input_x"], cfg["dim_input_y"],
+                    cfg["dim_input_channel"]), dtype=np.float32)
+    mean = eng.encode(x)[0]
+    inputs = {"encode": x, "reconstruct": x, "represent": x,
+              "decode": mean}
+    if "represent" in paths:
+        inputs["decode_representation"] = eng.represent(x)[0]
+    decodes = cfg["exp_name"] == "celeba" and torch.device(device).type \
+        == "cuda"
+    rows = {}
+    for name, path in paths.items():
+        call = load_exported(path)
+        live = getattr(eng, name)
+
+        def host(out):
+            if isinstance(out, (tuple, list)):
+                return tuple(o.cpu().numpy() for o in out)
+            return out.cpu().numpy()
+
+        before = fused_instnorm_style_lrelu.launches
+        got = host(call(inputs[name]))
+        launches = fused_instnorm_style_lrelu.launches - before
+        want = live(inputs[name])
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        gap = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        if len(got) != len(want) or not gap <= EXPORT_MAX_ABS:
+            raise AssertionError(f"{label} {name}: exported vs engine max "
+                                 f"abs {gap}")
+        want_launches = 4 if decodes and name in (
+            "decode", "reconstruct", "decode_representation") else 0
+        if launches != want_launches:
+            raise AssertionError(f"{label} {name}: the exported graph "
+                                 f"launched the norm-chain forward "
+                                 f"{launches} times, expected "
+                                 f"{want_launches}")
+        rows[name] = {
+            "max_abs": gap, "launches": launches,
+            "exported_ms": _median_ms(lambda: host(call(inputs[name])),
+                                      repeats),
+            "engine_ms": _median_ms(lambda: live(inputs[name]), repeats)}
+    return {"label": label, "export_s": export_s, "paths": rows}
+
+
+def drive_export(device, celeba_cfg, mnist_cfg, serve_batch=SERVE_BATCH,
+                 repeats=UTILS_LATENCY_REPEATS):
+    """Phase 8's exports: the CelebA-128 'ours' engine (float32, TF32 off)
+    and the mnist_digit engine, from the pretrained groups."""
+    import shutil
+    import tempfile
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        out = [export_engine("CelebA-128 ours", celeba_cfg, device,
+                             os.path.join(work, "celeba"), serve_batch,
+                             repeats)]
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        out.append(export_engine("mnist_digit ours", mnist_cfg, device,
+                                 os.path.join(work, "mnist"), serve_batch,
+                                 repeats))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _timed_save(trainer, manager):
+    """The trainer's end-of-epoch save (both groups and the train state)
+    through manager: (seconds until it returned, seconds until it was on
+    disk)."""
+    from ladder_tpu_torch.models.builder import PRIORS_WITH_PRIOR_MODEL
+    real = trainer.ckpt
+    trainer.ckpt = manager
+    try:
+        t0 = time.perf_counter()
+        manager.save(trainer.model.flax_params(),
+                     model="joint" if trainer.prior
+                     in PRIORS_WITH_PRIOR_MODEL else "VAE")
+        trainer.save_full_state()
+        blocked = time.perf_counter() - t0
+        manager.flush()
+        return blocked, time.perf_counter() - t0
+    finally:
+        trainer.ckpt = real
+
+
+CHECKPOINT_FILES = ("vae-model.msgpack", "prior-model.msgpack",
+                    "train-state.msgpack")
+
+
+def _same_files(label, a, b):
+    for name in CHECKPOINT_FILES:
+        with open(os.path.join(a, name), "rb") as f, \
+                open(os.path.join(b, name), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{label}: {name} differs")
+
+
+def drive_async(device, overrides=ASYNC_OVERRIDES,
+                groups=os.path.join(ROOT, "pretrained_models",
+                                    "mnist_digit")):
+    """One epoch of the pretrained mnist_digit model through the train CLI
+    with async_checkpoint 1; its files against a synchronous save of the
+    same state, byte for byte; then the time a save blocks the epoch, both
+    ways, on that state."""
+    import shutil
+    import tempfile
+    from ladder_tpu_torch.utils.checkpoint import CheckpointManager
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        _copy_groups(groups, work, "mnist_digit")
+        run = _train_run("mnist_digit async-checkpoint run",
+                         mnist_config(dict(overrides, load_dir=work + "/")),
+                         work, device, (1,), {})
+        trainer = run["trainer"]
+        written = os.path.join(work, trainer.config["checkpoint_dir"])
+        times = {}
+        for flag in (0, 1):
+            ckdir = os.path.join(work, f"save_{flag}") + "/"
+            os.makedirs(ckdir)
+            manager = CheckpointManager(dict(trainer.config,
+                                             checkpoint_dir=ckdir,
+                                             async_checkpoint=flag))
+            times[flag] = _timed_save(trainer, manager)
+        _same_files("async run vs a synchronous save", written,
+                    os.path.join(work, "save_0"))
+        _same_files("async save vs synchronous save",
+                    os.path.join(work, "save_1"), os.path.join(work, "save_0"))
+        sizes = {n: os.path.getsize(os.path.join(written, n))
+                 for n in CHECKPOINT_FILES}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"run": run, "sync_s": times[0], "async_s": times[1],
+            "bytes": sizes}
+
+
+def drive_fid(device, cfg, n_images=FID_IMAGES):
+    """FID of two seeded synthetic CelebA sets through the pretrained
+    encoder (encoder_feature_fn) on device and on the CPU."""
+    import shutil
+    import tempfile
+    from ladder_tpu_torch.data.celeba import synthetic_celeba_images
+    from ladder_tpu_torch.utils.fid import (compute_FID_score,
+                                            encoder_feature_fn)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_fid_")
+    try:
+        files = []
+        for seed in (11, 12):
+            path = os.path.join(work, f"set{seed}.npz")
+            np.savez(path, sampled_images=synthetic_celeba_images(
+                n_images, seed=seed))
+            files.append(path)
+        scores = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            scores[dev] = (compute_FID_score(
+                *files, feature_fn=encoder_feature_fn(cfg, device=dev),
+                second_set="original"), time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    card, cpu = scores[device][0], scores["cpu"][0]
+    rel = abs(card - cpu) / abs(cpu)
+    if not (np.isfinite(card) and rel <= FID_RTOL):
+        raise AssertionError(f"FID on {device} {card} vs CPU {cpu}: "
+                             f"relative {rel}")
+    return {"card": card, "cpu": cpu, "rel": rel,
+            "card_s": scores[device][1], "cpu_s": scores["cpu"][1],
+            "images": n_images}
+
+
+def plots_refused(device, overrides=UTILS_MNIST_OVERRIDES):
+    """A trainer with enable_plots 1 and no matplotlib raises an
+    ImportError that names it at construction. Where matplotlib is
+    installed it is blocked for the check."""
+    import importlib.util
+    from ladder_tpu_torch.data.mnist import DataGenerator
+    from ladder_tpu_torch.models.builder import make_model
+    from ladder_tpu_torch.training.trainer import MNISTTrainer
+
+    installed = importlib.util.find_spec("matplotlib") is not None
+    cfg = mnist_config(dict(overrides, enable_plots=1))
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "matplotlib" or k.startswith("matplotlib.")}
+    sys.modules["matplotlib"] = None
+    try:
+        MNISTTrainer(make_model(cfg), DataGenerator(cfg), cfg, device=device)
+    except ImportError as e:
+        if "matplotlib" not in str(e):
+            raise AssertionError(f"the ImportError does not name "
+                                 f"matplotlib: {e}")
+        return {"message": str(e), "installed": installed}
+    finally:
+        del sys.modules["matplotlib"]
+        sys.modules.update(saved)
+    raise AssertionError("a trainer with enable_plots 1 and no matplotlib "
+                         "was built")
+
+
+def drive_utils(device, sampling=None, export_cfgs=None, fid_cfg=None,
+                fid_images=FID_IMAGES, serve_batch=SERVE_BATCH,
+                repeats=UTILS_LATENCY_REPEATS,
+                async_overrides=ASYNC_OVERRIDES):
+    """Phase 8: each part's checks, on the pretrained models unless the
+    caller gives smaller ones (sampling: drive_sampling's keywords;
+    export_cfgs: the CelebA and the mnist engine's configs; fid_cfg: the
+    encoder's); the kernel launches of the phase, counted from 0."""
+    import torch
+    from ladder_tpu_torch.utils.config import process_config
+
+    out = {}
+    launches = dict.fromkeys(kernel_counters(), 0)
+
+    def part(key, fn, *args):
+        # each part counts from 0 (the train CLI's runs reset the counts)
+        reset_counters()
+        out[key] = fn(*args)
+        for k, v in read_counters().items():
+            launches[k] += v
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+    part("sampling", lambda: drive_sampling(device, **(sampling or {})))
+    part("export", drive_export, device,
+         *(export_cfgs or (process_config(CONFIG),
+                           process_config(MNIST_CONFIG))),
+         serve_batch, repeats)
+    part("async", drive_async, device, async_overrides)
+    part("fid", drive_fid, device, fid_cfg or process_config(CONFIG),
+         fid_images)
+    part("plots", plots_refused, device)
+    out["launches"] = launches
+    return out
+
+
+def log_utils(result, smi):
+    for run in result["sampling"]:
+        log(f"  prior samples {run['label']} on {smi}: {run['shape']} "
+            f"'{run['name']}', card vs CPU max abs {run['cpu_max_abs']:.3g} "
+            f"(bound {SAMPLE_CPU_MAX_ABS}); {1e3 * run['seconds']:.1f} ms, "
+            f"again {1e3 * run['seconds_again']:.1f} ms (draws, codes, one "
+            f"decode, copy); norm-chain launches {run['launches']} a call")
+    for exp in result["export"]:
+        log(f"  export {exp['label']} on {smi}: {exp['export_s']:.2f} s for "
+            f"{len(exp['paths'])} paths")
+        for name, row in exp["paths"].items():
+            log(f"    {name}: loaded vs engine max abs {row['max_abs']:.3g} "
+                f"(bound {EXPORT_MAX_ABS}); norm-chain launches "
+                f"{row['launches']}; median of {UTILS_LATENCY_REPEATS} at "
+                f"batch {SERVE_BATCH}: loaded {row['exported_ms']:.2f} ms, "
+                f"engine {row['engine_ms']:.2f} ms")
+    asy = result["async"]
+    log(f"  async checkpoints on {smi}: the run's files and an async save "
+        f"equal a synchronous save byte for byte ({asy['bytes']}); a save "
+        f"blocks the epoch {1e3 * asy['sync_s'][0]:.1f} ms synchronous, "
+        f"{1e3 * asy['async_s'][0]:.1f} ms asynchronous (on disk after "
+        f"{1e3 * asy['async_s'][1]:.1f} ms); the run {asy['run']['seconds']:.2f}"
+        f" s, launches {asy['run']['launches']}")
+    _log_epochs(asy["run"]["trainer"],
+                asy["run"]["trainer"].config["batch_size"])
+    fid = result["fid"]
+    log(f"  FID of two synthetic CelebA sets of {fid['images']} through the "
+        f"pretrained encoder: {fid['card']:.6f} on {smi} "
+        f"({fid['card_s']:.2f} s), {fid['cpu']:.6f} on the CPU "
+        f"({fid['cpu_s']:.2f} s), relative {fid['rel']:.3g} (bound "
+        f"{FID_RTOL})")
+    plots = result["plots"]
+    log(f"  enable_plots 1 without matplotlib (installed here: "
+        f"{plots['installed']}): ImportError '{plots['message']}'")
+    log(f"  phase 8 launches {result['launches']}")
+
+
 def times_only(package, cfg, peaks):
     """``--only times``: phase 2's checks and times of the norm-chain
     forward at the stage shapes and of the Adam update over the
@@ -2363,7 +2855,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("build", "kernels", "serving",
                                            "training", "mnist", "celeba",
-                                           "interp", "times"))
+                                           "interp", "utils", "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -2437,6 +2929,10 @@ def main(argv=None):
         log(PHASE7)
         interp = drive_interp("cuda")
         log_interp(interp, drive_other_trainers("cuda"), smi)
+        return 0
+    if only == "utils":
+        log(PHASE8)
+        log_utils(drive_utils("cuda"), smi)
         return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
@@ -2552,9 +3048,23 @@ def main(argv=None):
         raise AssertionError("phase 7 never launched the norm-chain forward "
                              "(CelebA decodes) or the Adam update (training)")
 
+    del interp, others
+    torch.cuda.empty_cache()
+
+    log(PHASE8)
+    utils = drive_utils("cuda")
+    log_utils(utils, smi)
+    utils_launches = utils["launches"]
+    if (utils_launches["norm_chain_fwd"] <= 0
+            or utils_launches["adam_update"] <= 0):
+        raise AssertionError("phase 8 never launched the norm-chain forward "
+                             "(CelebA decodes) or the Adam update (the "
+                             "async-checkpoint epoch)")
+    del utils
+
     total = {k: serving[k] + training[k] + mnist_launches[k]
              + celeba_launches[k] + interp_launches[k] + prior_launches[k]
-             for k in serving}
+             + utils_launches[k] for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -2575,6 +3085,7 @@ def main(argv=None):
         entry["launches_celeba"] = celeba_launches[entry["name"]]
         entry["launches_interp"] = interp_launches[entry["name"]]
         entry["launches_priors"] = prior_launches[entry["name"]]
+        entry["launches_utils"] = utils_launches[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,12 @@ float32 (four stages, [64,512,2,2] twice, [64,256,16,16], [64,128,64,64]),
 about 91 us at an H100 SXM's 3.35 TB/s; the backward reads g and x and
 writes dx, 456 MB, about 136 us. Half that in bfloat16.
 
+The forward is the operator ``torch.ops.ladder_tpu_torch.norm_chain_fwd``
+(``torch.library.custom_op`` with a fake implementation), so that a graph
+``torch.export`` writes holds it and launches the kernel when it runs; a
+program that loads such a graph imports this module first, which registers
+the operator. The backward is called from the autograd function directly.
+
 Dispatch is by device: a CPU tensor goes to ``norm_chain_reference`` and
 ``norm_chain_bwd_reference``, the plain PyTorch versions; a CUDA tensor
 launches the kernels or raises. ``fused_instnorm_style_lrelu.launches`` and
@@ -116,7 +122,12 @@ def _require_cuda_contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _forward(x, scale, shift, eps, alpha):
+@torch.library.custom_op("ladder_tpu_torch::norm_chain_fwd", mutates_args=())
+def norm_chain_fwd(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                   eps: float, alpha: float) -> torch.Tensor:
+    """The forward as a PyTorch operator, so that ``torch.export`` can carry
+    it (serving/export.py): a CPU tensor takes the plain version, a CUDA
+    tensor launches the kernel or raises."""
     if x.device.type == "cpu":
         return norm_chain_reference(x, scale, shift, eps, alpha)
     _require_cuda_contiguous(x=x, scale=scale, shift=shift)
@@ -129,6 +140,11 @@ def _forward(x, scale, shift, eps, alpha):
                      _DTYPES[x.dtype], eps, alpha, stream)
     fused_instnorm_style_lrelu.launches += 1
     return out
+
+
+@norm_chain_fwd.register_fake
+def _norm_chain_fwd_fake(x, scale, shift, eps, alpha):
+    return torch.empty_like(x)
 
 
 def forward_path(x):
@@ -172,7 +188,7 @@ class _NormChain(torch.autograd.Function):
     def forward(ctx, x, scale, shift, eps, alpha):
         ctx.save_for_backward(x, scale, shift)
         ctx.eps, ctx.alpha = eps, alpha
-        return _forward(x, scale, shift, eps, alpha)
+        return norm_chain_fwd(x, scale, shift, eps, alpha)
 
     @staticmethod
     def backward(ctx, g):

@@ -8,6 +8,10 @@
     python -m ladder_tpu_torch.serve --config ... --reconstruct in.npz \\
         --out recon.npz
 
+    # write every served path as a torch.export program, <dir>/<name>.pt2
+    # (serving/export.py)
+    python -m ladder_tpu_torch.serve --config ... --export exported/
+
     # HTTP endpoint (stdlib, npy request/response bodies)
     python -m ladder_tpu_torch.serve --config ... --http 8787
     #   POST /encode /decode /reconstruct /represent with an .npy body;
@@ -186,6 +190,8 @@ def main(argv=None):
                     help="disable HTTP request micro-batching")
     ap.add_argument("--batch-wait-ms", type=float, default=2.0,
                     help="micro-batching linger window")
+    ap.add_argument("--export", default=None,
+                    help="write the paths as torch.export programs here")
     ap.add_argument("--out", default="serving_out.npz")
     args = ap.parse_args(argv)
 
@@ -198,6 +204,12 @@ def main(argv=None):
         serve_batch=args.serve_batch, dtype=args.dtype,
         allow_uninitialized=args.allow_uninitialized,
         bn_stats_path=args.bn_stats, device=args.device)
+
+    if args.export:
+        from ladder_tpu_torch.serving.export import export_inference
+        for name, path in export_inference(engine, args.export).items():
+            print(f"exported {name} -> {path}")
+        return 0
 
     if args.generate:
         imgs = engine.generate(args.generate, seed=args.seed)
@@ -223,7 +235,7 @@ def main(argv=None):
               f"{'off' if args.no_batching else 'on'})", flush=True)
         return serve_http(engine, front, server)
 
-    print("nothing to do: pass --generate/--reconstruct/--http")
+    print("nothing to do: pass --generate/--reconstruct/--export/--http")
     return 1
 
 

@@ -1,7 +1,10 @@
 """Inference for trained LaDDer models: the engine, the micro-batching
-frontend, and population BatchNorm statistics (serve CLI: ../serve.py)."""
+frontend, population BatchNorm statistics and torch.export of the engine's
+paths (serve CLI: ../serve.py)."""
 
 from ladder_tpu_torch.serving.batcher import Batcher
 from ladder_tpu_torch.serving.engine import InferenceEngine
+from ladder_tpu_torch.serving.export import export_inference, load_exported
 
-__all__ = ["Batcher", "InferenceEngine"]
+__all__ = ["Batcher", "InferenceEngine", "export_inference",
+           "load_exported"]

@@ -14,8 +14,9 @@ the CPU and ``ladder_tpu``. ``dtype='bfloat16'`` runs the conv and dense
 stacks in bf16 with float32 parameters, heads and norm statistics.
 
 The decoder's four style stages run the hand-written norm-chain kernel on
-a CUDA device (ops/norm_chain.py). ``mesh_devices`` (multi-device serving)
-and AOT export are not ported yet.
+a CUDA device (ops/norm_chain.py). serving/export.py writes the paths as
+``torch.export`` graphs. ``mesh_devices`` (multi-device serving) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +57,30 @@ def _pad_to(x, n):
         raise ValueError(f"batch {k} exceeds bucket {n}")
     pad = np.broadcast_to(x[-1:], (n - k,) + x.shape[1:])
     return np.concatenate([x, pad], axis=0)
+
+
+def render(model, z):
+    """codes -> NHWC images clipped to [0,1]."""
+    return model.decode(z).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+
+def run_path(model, name, x):
+    """One serving path on a tensor on the model's device: NHWC float32
+    images in [0,1] for 'encode', 'reconstruct' and 'represent', codes for
+    'decode', t-space points for 'decode_representation'. The engine and
+    the exported graphs (serving/export.py) run this one function."""
+    if name == "decode":
+        return render(model, x)
+    if name == "decode_representation":
+        return render(model, model.inner_decode(x)[0])
+    mean, std = model.encode(x.permute(0, 3, 1, 2).contiguous())
+    if name == "encode":
+        return mean, std
+    if name == "represent":
+        return model.inner_encode(mean)
+    if name == "reconstruct":
+        return render(model, mean)
+    raise ValueError(f"unknown serving path {name!r}")
 
 
 def _to_numpy(out, n):
@@ -130,6 +155,7 @@ class InferenceEngine:
             params = ck.load(params, "prior")
         self.model.load_flax_params(params)
         self.model.to(self.device).eval().requires_grad_(False)
+        self.mesh = None  # one device: multi-device serving is not ported
 
         self.gm = self._load_gm(gm_info_path)
         self._latency = {}
@@ -158,28 +184,27 @@ class InferenceEngine:
 
     # -- device paths (tensors in, tensors out) ------------------------
     def _images(self, x):
-        """NHWC uint8 or float -> NCHW float32 on the device."""
+        """NHWC uint8 or float -> NHWC float32 in [0,1] on the device."""
         t = torch.tensor(x, device=self.device)
-        t = t.float() * (1.0 / 255.0) if t.dtype == torch.uint8 else t.float()
-        return t.permute(0, 3, 1, 2).contiguous()
+        return t.float() * (1.0 / 255.0) if t.dtype == torch.uint8 else t.float()
 
     def _render(self, z):
         """codes -> NHWC images clipped to [0,1]."""
-        return self.model.decode(z).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        return render(self.model, z)
 
     def _encode(self, x):
-        return self.model.encode(self._images(x))
+        return run_path(self.model, "encode", self._images(x))
 
     def _reconstruct(self, x):
-        return self._render(self.model.encode(self._images(x))[0])
+        return run_path(self.model, "reconstruct", self._images(x))
 
     def _represent(self, x):
-        return self.model.inner_encode(self.model.encode(self._images(x))[0])
+        return run_path(self.model, "represent", self._images(x))
 
     def _decode_representation(self, t):
         """t-space point -> image: the inner decoder's mean code, then the
         outer decoder (the demo's SLP-interpolation render path)."""
-        return self._render(self.model.inner_decode(t)[0])
+        return run_path(self.model, "decode_representation", t)
 
     def _gen_codes(self, generator):
         n, cfg, gm, dev = self.serve_batch, self.config, self.gm, self.device

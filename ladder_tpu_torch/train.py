@@ -13,8 +13,9 @@ in-memory arrays (data/mnist.py, MNISTTrainer), CelebA on TFRecords
 (data/celeba.py, CelebATrainer). ``--device`` is cuda unless the caller
 asks for the CPU; without a CUDA device the default fails. As the
 reference does, a missing or unreadable config prints ``missing or invalid
-arguments`` and exits 0. The port's trainer does not plot: the config must
-set ``"enable_plots": 0``.
+arguments`` and exits 0. With ``enable_plots`` on (the default) the
+trainer writes ``ladder_tpu``'s PDFs and needs matplotlib: without it, it
+raises an ImportError before the first step.
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ celebA_test.tfrecords, the staircase lr (/1, /2, /5, /10 at epochs
 25/50/75 with a restarted 0.99 decay), validation from
 celebA_val.tfrecords, and every quirk of the reference that
 ``ladder_tpu`` keeps: the gates on TRAIN_VAE and TRAIN_prior, and the
-validation average over n_val_iter whatever was recorded. Its mid-epoch
-reconstruction snapshots at ``idx_check_point`` are plots; the port trains
-with plots off (JointTrainer.mid_epoch_hook).
+validation average over n_val_iter whatever was recorded. With plots on,
+the test batch is reconstructed at the steps of ``idx_check_point`` inside
+each epoch and plotted beside its ground truth (``mid_epoch_hook``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 
 from ladder_tpu_torch.training import schedules
 from ladder_tpu_torch.training.trainer import JointTrainer
+from ladder_tpu_torch.utils import plotting
 
 
 class CelebATrainer(JointTrainer):
@@ -79,3 +80,25 @@ class CelebATrainer(JointTrainer):
         reference does."""
         self.metrics.val_loss_ave_epoch.append(
             val_loss_sum / self.n_val_iter())
+
+    def mid_epoch_hook(self, idx_iter, span=1):
+        """Reconstruction snapshots at checkpoints inside the epoch
+        (trainers.py:156-158): the test batch through test_step, then the
+        interleaved ground-truth and reconstruction rows, for every
+        checkpoint index in the steps idx_iter-span+1..idx_iter."""
+        if not (self.plots_enabled and self.config["num_iter_to_plot"] > 1):
+            return
+        lo = idx_iter - span + 1
+        hits = self.idx_check_point[(self.idx_check_point >= lo)
+                                    & (self.idx_check_point <= idx_iter)]
+        if hits.size == 0:
+            return
+        self.test_step(self._test_batch, print_result=False)
+        for h in hits:
+            plotting.plot_interleaved_recon(
+                np.asarray(self._test_batch, dtype=np.float32) / 255.0,
+                self.output_test, self.config["result_dir"],
+                self.cur_epoch, int(h), self.config["batch_size"])
+
+    def epoch_tail_plots(self):
+        """Nothing: CelebA plots at the checkpoints inside the epoch."""

@@ -34,12 +34,20 @@ What differs and why, each named where it lives:
     (models/celeba.py:66-67, models/inner_vae.py:38-41), the decoder's
     output and the output stage's l1/l2 sums (ops/pallas_output.py
     accumulates in float32), and so every metric the recorders read.
-  * not ported, and refused at construction rather than skipped: plots
-    (config['enable_plots'] must be 0), the sklearn GM backend, a device
-    mesh of more than one device. With plots off ``ladder_tpu`` generates
-    no prior samples; its test_step still decodes a reconstruction of the
-    test batch (output_test, trainer.py:686-690), which only the plots
-    read, and the port leaves it out.
+  * plots (config['enable_plots'], on by default as in ``ladder_tpu``):
+    the ground-truth test grid, the GM scatter and density plots of each
+    fit in a 2-D space, the prior samples of every epoch, the
+    reconstructions and the loss curves, under ``ladder_tpu``'s PDF
+    names (utils/plotting.py). They need matplotlib, which the card's
+    machine does not have: with plots on and no matplotlib the trainer
+    raises an ImportError at construction, before any step. Prior
+    sampling is split as in ``ladder_tpu``: ``prior_samples`` decodes on
+    the device and returns host images, ``generate_samples_from_prior``
+    plots them. With plots off, test_step decodes no reconstruction of
+    the test batch (``ladder_tpu``'s output_test, trainer.py:686-690, which
+    only the plots read), so the device runs what it did before plots.
+  * not ported, and refused at construction rather than skipped: the
+    sklearn GM backend, a device mesh of more than one device.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ from ladder_tpu_torch.models.builder import (
     PRIORS_WITH_INNER_VAE,
     PRIORS_WITH_PRIOR_MODEL,
 )
-from ladder_tpu_torch.ops.distributions import gmm_cholesky
+from ladder_tpu_torch.ops.distributions import gmm_cholesky, sample_gmm
 from ladder_tpu_torch.ops.gmm import (
     ACTIVE_WEIGHT_THRESHOLD,
     fit_bgmm,
@@ -83,6 +91,7 @@ from ladder_tpu_torch.utils.checkpoint import (
 )
 from ladder_tpu_torch.utils.device import float32_exact, resolve_device
 from ladder_tpu_torch.utils.metrics import BUFFER_NAMES, MetricsRecorder
+from ladder_tpu_torch.utils import plotting
 from ladder_tpu_torch.utils.profiling import StepTimer, trace
 
 RNG_KEY = "torch_rng"
@@ -124,10 +133,6 @@ def _to_host(tree):
 
 
 def _refuse_unported(config):
-    if config.get("enable_plots", 1):
-        raise NotImplementedError(
-            "enable_plots: the plotting module is not ported to "
-            "ladder_tpu_torch yet (ROADMAP.md); set \"enable_plots\": 0")
     if config.get("gmm_backend", "jax") == "sklearn":
         raise NotImplementedError(
             "gmm_backend='sklearn' is not ported (the port does not depend "
@@ -151,6 +156,9 @@ class JointTrainer:
         self.data = data
         self.config = config
         self.prior = config["prior"]
+        self.plots_enabled = bool(config.get("enable_plots", 1))
+        if self.plots_enabled:
+            plotting.pyplot()  # no matplotlib: ImportError before any step
         self.device = resolve_device(device)
         # one generator for every draw of the run (see the module docstring)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -171,6 +179,7 @@ class JointTrainer:
         self.gm_fast = None       # (weights, means, covs) of the fast fit
         self.gm_final = None      # accurate fit
         self._timer_summary = None
+        self.output_test = None   # the test batch's decode, for the plots
         # per epoch: the step timer's summary, each GM fit's seconds and
         # iterations, the validation loop's seconds
         self.timings = []
@@ -204,13 +213,10 @@ class JointTrainer:
     def mid_epoch_hook(self, idx_iter, span=1):
         """After each train step (``ladder_tpu``'s trainer.py:461, called at
         :329/:339/:349; the port runs one step per batch, so span is 1).
-        ``ladder_tpu``'s CelebA trainer plots reconstructions here at
-        idx_check_point; with plots off, the only mode the port trains in,
-        it returns at once, as ``ladder_tpu``'s does."""
+        The CelebA trainer plots reconstructions here; no-op for MNIST."""
 
     def epoch_tail_plots(self):
-        """Dataset-specific plots after validation (trainer.py:467); the
-        port plots nothing."""
+        """Dataset-specific plots after validation (trainer.py:467)."""
 
     # ---- epoch-state helpers -----------------------------------------
     def _place(self, batch):
@@ -371,6 +377,10 @@ class JointTrainer:
                 and self.prior in PRIORS_WITH_GM):
             self.fit_GM()
 
+        # prior samples (base.py:1147-1168)
+        if self.plots_enabled:
+            self.generate_samples_from_prior()
+
         self.test_step(self.test_batch(), print_result=True)
 
         t0 = time.perf_counter()
@@ -404,6 +414,17 @@ class JointTrainer:
         self.metrics.save(cfg, self.num_para_list, self.n_train_iter(),
                           self.n_val_iter())
         self._write_scalar_summary()
+
+        if self.plots_enabled:
+            if cfg["TRAIN_VAE"] == 1:
+                plotting.plot_train_and_val_loss_vae(
+                    self.metrics, cfg["result_dir"], cfg["TRAIN_sigma"],
+                    cfg["sigma"])
+            if (self.cur_epoch > cfg["sg_pretraining"]
+                    and self.prior in PRIORS_WITH_PRIOR_MODEL
+                    and cfg["TRAIN_prior"] == 1):
+                plotting.plot_train_and_val_loss_prior(
+                    self.metrics, cfg["result_dir"], self.prior)
 
     def val_vae_enabled(self):
         """MNIST runs the VAE val step unconditionally (trainers.py:62);
@@ -507,20 +528,119 @@ class JointTrainer:
     def fit_GM(self):
         cfg = self.config
         if self.prior == "ours":
-            self.fit_GMM_VI(mode="fast", space="t")
+            plot = cfg["representation_size"] == 2 and self.plots_enabled
+            samples = self.fit_GMM_VI(mode="fast", space="t")
+            if plot:
+                self._plot_gm(samples, self.gm_fast, "crude-GM")
             if (self.cur_epoch % cfg["accurate_fit"] == 0
                     or self.cur_epoch == cfg["num_epochs"]):
-                self.fit_GMM_VI(mode="accurate", space="t")
+                samples = self.fit_GMM_VI(mode="accurate", space="t")
+                if plot:
+                    self._plot_gm(samples, self.gm_final, "accurate-GM")
         elif self.prior == "GMM":
+            plot = cfg["code_size"] == 2 and self.plots_enabled
             if self.cur_epoch < cfg["num_epochs"]:
-                self.fit_GMM_VI(mode="fast", space="z")
+                samples = self.fit_GMM_VI(mode="fast", space="z")
+                gm, mode = self.gm_fast, "crude-GM"
             else:
-                self.fit_GMM_VI(mode="accurate", space="z")
+                samples = self.fit_GMM_VI(mode="accurate", space="z")
+                gm, mode = self.gm_final, "accurate-GM"
+            if plot:
+                self._plot_gm(samples, gm, mode)
+
+    def _plot_gm(self, samples, gm, mode):
+        samples, (w, m, K) = _to_host((samples, gm))
+        for style in ("circle", "density"):
+            plotting.plot_prior_distribution(
+                samples, w, m, K, self.config["result_dir"], self.cur_epoch,
+                mode=mode, style=style)
+
+    # ---- prior sampling / generation (base.py:1065-1168) -------------
+    def prior_draws(self, n, mode="crude-GM", method=None):
+        """The random draws behind n codes of the prior ``method`` (the
+        trainer's prior by default), from the trainer's generator:
+        {'z'} for standard_gaussian and GMM, {'t'} for ours and
+        hierarchical, {'k', 'eps'} for vampPrior. GMM and ours sample the
+        fast fit (mode 'crude-GM') or the accurate one."""
+        cfg = self.config
+        method = method or self.prior
+        gen, dev = self.generator, self.device
+        if method in ("GMM", "ours"):
+            w, m, K = self.gm_fast if mode == "crude-GM" else self.gm_final
+            x = sample_gmm(gen, w, m, gmm_cholesky(K), n)
+            return {"z" if method == "GMM" else "t": x}
+        if method == "standard_gaussian":
+            return {"z": torch.randn((n, cfg["code_size"]), generator=gen,
+                                     device=dev)}
+        if method == "hierarchical":
+            return {"t": torch.randn((n, cfg["representation_size"]),
+                                     generator=gen, device=dev)}
+        if method == "vampPrior":
+            k = torch.randint(0, cfg["n_mixtures"], (n,), generator=gen,
+                              device=dev)
+            return {"k": k, "eps": torch.randn((n, cfg["code_size"]),
+                                               generator=gen, device=dev)}
+        raise ValueError(method)
+
+    def codes_from_draws(self, draws):
+        """Codes z from prior_draws' draws: z itself, the inner decoder's
+        mean code of t, or the pseudo-input mixture's component k shifted
+        by eps (``ladder_tpu``'s sample_codes_from_prior,
+        trainer.py:623-647)."""
+        if "z" in draws:
+            return draws["z"]
+        if "t" in draws:
+            return self.fwd["inner_decode"](draws["t"])
+        with torch.no_grad():
+            pseudo = self.model.pseudo_inputs().permute(0, 2, 3, 1)  # NHWC
+        mean, std = self.fwd["encode"](pseudo)
+        k = draws["k"]
+        return mean[k] + std[k] * draws["eps"]
+
+    def sample_codes_from_prior(self, n, mode="crude-GM", method=None):
+        """n codes z from the configured prior (or ``method``)."""
+        return self.codes_from_draws(self.prior_draws(n, mode, method))
+
+    def prior_samples(self, n_sample=10):
+        """The device half of generate_samples_from_prior: n_sample**2
+        codes of the epoch's prior and fit (trainer.py:649-663), decoded in
+        one call. Returns (images [n_sample**2, H, W, C] on the host, the
+        PDF's filename)."""
+        cfg = self.config
+        mode, method = "crude-GM", None
+        if self.prior == "ours":
+            if self.cur_epoch <= cfg["sg_pretraining"]:
+                method = "standard_gaussian"
+            elif (self.cur_epoch % cfg["accurate_fit"] == 0
+                  or self.cur_epoch == cfg["num_epochs"]):
+                mode = "accurate-GM"
+        elif self.prior == "GMM":
+            if self.cur_epoch >= cfg["num_epochs"]:
+                mode = "accurate-GM"
+        codes = self.sample_codes_from_prior(n_sample ** 2, mode=mode,
+                                             method=method)
+        images = self.fwd["decode"](codes).cpu().numpy()
+        if (method or self.prior) in ("GMM", "ours"):
+            name = f"generated_samples_prior_{self.cur_epoch}_{mode}.pdf"
+        else:
+            name = f"generated_samples_prior_{self.cur_epoch}.pdf"
+        return images, os.path.join(cfg["result_dir"], name)
+
+    def generate_samples_from_prior(self, n_sample=10):
+        images, filename = self.prior_samples(n_sample)
+        plotting.plot_generated_samples(images, filename, n_sample,
+                                        prior=self.prior)
 
     # ---- test / diagnostics (base.py:944-986) ------------------------
     def test_step(self, batch, print_result=False):
-        m = _to_host(self.eval_step(self._place(batch), self.generator,
-                                    self._gm_for_step(), self._flags()))
+        x = self._place(batch)
+        m = _to_host(self.eval_step(x, self.generator, self._gm_for_step(),
+                                    self._flags()))
+        if self.plots_enabled:
+            # the reconstruction the plots show: a fresh posterior sample,
+            # decoded (trainer.py:684-689)
+            z = self.fwd["encode_sample"](x, self.generator)
+            self.output_test = self.fwd["decode"](z).cpu().numpy()
         if print_result:
             print("test loss: elbo: {:.4f}, recons_loss_l1: {:.4f}, "
                   "entropy z: {:.4f}, cross entropy z: {:.4f}, "
@@ -641,6 +761,10 @@ class MNISTTrainer(JointTrainer):
 
     def __init__(self, model, data, config, device="cuda"):
         super().__init__(model, data, config, device)
+        if self.plots_enabled:
+            plotting.plot_ground_truth_test_set(
+                data.test_set["image"], config["result_dir"],
+                config["batch_size"])
         self._images = {
             name: torch.as_tensor(getattr(data, name)["image"]).to(self.device)
             for name in ("train_set", "val_set", "test_set")}
@@ -668,3 +792,9 @@ class MNISTTrainer(JointTrainer):
 
     def n_val_iter(self):
         return self.data.n_val // self.config["batch_size"]
+
+    def epoch_tail_plots(self):
+        if self.plots_enabled and self.output_test is not None:
+            plotting.plot_reconstructed_data(
+                self.output_test, self.config["result_dir"], self.cur_epoch,
+                title_attribs=None, narrow_space=True)

@@ -20,15 +20,19 @@ package reads the other's files. Writes go to a temporary file that
 (encoder, decoder, sigma), 'prior-model' (prior, inner_sigma) and
 'train-state' ({state, extra}: the train state as
 ``training/step.py:flax_state`` lays it out, and the trainer's epoch, fitted
-GMs, metric buffers and random state). It writes synchronously;
-``ladder_tpu``'s asynchronous writer and orbax backend are not ported and
-their options raise.
+GMs, metric buffers and random state). With config['async_checkpoint']
+= 1 the serialisation and the disk writes run in one background thread
+(``AsyncCheckpointWriter``), in order; every read through the manager, and
+``flush()``, waits for them first. The orbax backend is not ported and its
+option raises.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import struct
+import threading
 
 import numpy as np
 
@@ -291,28 +295,124 @@ def save_msgpack(path, tree):
     os.replace(tmp, path)
 
 
+class AsyncCheckpointWriter:
+    """One background thread that runs the submitted writes in order.
+
+    A bounded queue (``depth`` writes pending at most) applies
+    backpressure. A failed write is sticky: every later submit() and
+    flush() raises until reset_error(), so a checkpoint stream with a hole
+    in it never looks healthy again by itself."""
+
+    def __init__(self, depth=2):
+        self._q = queue.Queue(maxsize=depth)
+        self._err = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            fn = self._q.get()
+            try:
+                fn()
+            except BaseException as e:  # raised again by submit / flush
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _check(self):
+        if self._err is not None:
+            raise RuntimeError(
+                "async checkpoint write failed (sticky until reset_error())"
+            ) from self._err
+
+    def reset_error(self):
+        """Acknowledge a failed write and resume the stream."""
+        self._err = None
+
+    def submit(self, fn):
+        self._check()
+        self._q.put(fn)
+
+    def flush(self):
+        """Block until every submitted write is on disk; raise on a failed
+        one."""
+        self._q.join()
+        self._check()
+
+
+def _snapshot(tree):
+    """A host copy of every leaf, taken before the caller goes on.
+
+    The train step updates the parameters and Adam moments in place (the
+    Adam kernel writes them on the device, its plain version on the CPU),
+    so a leaf the writer thread read later could hold a later step's
+    values, or half of one. The copy is made here, synchronously: a tensor
+    is copied to the host (a device-to-host copy waits for the kernels
+    before it), a numpy array is copied (a CPU tensor's ``.numpy()`` shares
+    its memory). The trainer's trees are already host copies
+    (utils/weights.py:torch_to_flax), so this costs a host memcpy of the
+    checkpoint's bytes, against the serialisation and the disk write the
+    thread takes off the training loop."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_snapshot(v) for v in tree)
+    if hasattr(tree, "detach"):
+        return tree.detach().to("cpu", copy=True).numpy()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
 class CheckpointManager:
     """The two parameter groups and the full train state of
     ``ladder_tpu.utils.checkpoint.CheckpointManager``, on flax-layout trees
-    of numpy arrays, written synchronously."""
+    of numpy arrays, written synchronously or by the asynchronous writer."""
 
     def __init__(self, config):
         if config.get("checkpoint_backend", "msgpack") != "msgpack":
             raise NotImplementedError(
                 f"checkpoint_backend={config['checkpoint_backend']!r}: only "
                 "the msgpack backend is ported (ROADMAP.md)")
-        if config.get("async_checkpoint"):
-            raise NotImplementedError(
-                "async_checkpoint=1: the asynchronous checkpoint writer is "
-                "not ported; set async_checkpoint to 0 (ROADMAP.md)")
         self.config = config
         ckdir = config["checkpoint_dir"]
         self.path_vae = os.path.join(ckdir, "vae-model.msgpack")
         self.path_prior = os.path.join(ckdir, "prior-model.msgpack")
         self.path_state = os.path.join(ckdir, "train-state.msgpack")
+        self._writer = None
+
+    def _async_enabled(self):
+        """config['async_checkpoint'] = 1 moves serialisation and IO to the
+        background writer (the port runs one process: ``ladder_tpu``'s
+        multi-process exception does not arise)."""
+        return bool(self.config.get("async_checkpoint"))
+
+    def _write_msgpack(self, path, tree, done_msg=None):
+        """done_msg, when given, is printed only after the bytes are on
+        disk: in async mode inside the writer thread, so the log never
+        claims a write that later fails."""
+        if not self._async_enabled():
+            save_msgpack(path, tree)
+            if done_msg:
+                print(done_msg)
+            return
+        if self._writer is None:
+            self._writer = AsyncCheckpointWriter()
+        snap = _snapshot(tree)
+
+        def _write():
+            save_msgpack(path, snap)
+            if done_msg:
+                print(done_msg)
+
+        self._writer.submit(_write)
 
     def flush(self):
-        """Every write is on disk when it returns: nothing to wait for."""
+        """Wait for pending asynchronous writes (nothing to wait for when
+        synchronous); raise if one failed."""
+        if self._writer is not None:
+            self._writer.flush()
 
     def save(self, params, model="joint"):
         """Write the 'vae-model' and/or 'prior-model' groups of a flax-layout
@@ -322,19 +422,21 @@ class CheckpointManager:
         has_prior = cfg["prior"] in ("ours", "hierarchical", "vampPrior")
         if model in ("VAE", "joint") and (model == "VAE"
                                           or cfg["TRAIN_VAE"] == 1):
-            save_msgpack(self.path_vae,
-                         {k: params[k] for k in VAE_KEYS if k in params})
-            print("Outer VAE model saved.")
+            self._write_msgpack(
+                self.path_vae, {k: params[k] for k in VAE_KEYS if k in params},
+                done_msg="Outer VAE model saved.")
         if has_prior and (model == "prior"
                           or (model == "joint" and cfg["TRAIN_prior"] == 1)):
-            save_msgpack(self.path_prior,
-                         {k: params[k] for k in PRIOR_KEYS if k in params})
-            print("Prior model saved.")
+            self._write_msgpack(
+                self.path_prior,
+                {k: params[k] for k in PRIOR_KEYS if k in params},
+                done_msg="Prior model saved.")
 
     def load(self, params, model):
         """Merge the saved group ('VAE' or 'prior') into a flax-layout
         parameter tree; soft-fails on a missing file like the reference
         (base.py:68-85). Every saved leaf must match the template's shape."""
+        self.flush()  # read after write: pending saves land first
         print("\ncheckpoint_dir to be loaded:\n{}\n".format(
             self.config["checkpoint_dir"]))
         path = self.path_vae if model == "VAE" else self.path_prior
@@ -354,10 +456,12 @@ class CheckpointManager:
     def save_full(self, state, extra=None):
         """Write 'train-state': ``state`` is the flax-layout train state
         {params, opt, step}, ``extra`` a tree of host values."""
-        save_msgpack(self.path_state, {"state": state, "extra": extra or {}})
+        self._write_msgpack(self.path_state,
+                            {"state": state, "extra": extra or {}})
 
     def load_full(self):
         """(flax-layout train state, extra), or None without a file."""
+        self.flush()  # read after write: pending saves land first
         if not os.path.isfile(self.path_state):
             return None
         raw = load_msgpack(self.path_state)

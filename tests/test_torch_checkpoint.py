@@ -134,3 +134,142 @@ def test_config_validation_messages():
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="missing required keys"):
         tconfig.validate_config({"prior": "ours"})
+
+
+# ---- the asynchronous writer ------------------------------------------
+
+def _groups_and_state(seed=0):
+    rng = np.random.default_rng(seed)
+    params = {"encoder": {"a": {"kernel": rng.random((3, 4), np.float32)}},
+              "decoder": {"b": {"bias": rng.random(5, np.float32)}},
+              "sigma": {"sigma": np.asarray(0.3, np.float32)},
+              "prior": {"p": {"bias": rng.random(4, np.float32)}},
+              "inner_sigma": {"inner_sigma": np.asarray(0.1, np.float32)}}
+    extra = {"cur_epoch": np.asarray(2), "metrics": {
+        "train_loss": rng.random(7)}}
+    return params, extra
+
+
+def _manager(root, async_checkpoint):
+    os.makedirs(root, exist_ok=True)
+    return tck.CheckpointManager({"checkpoint_dir": str(root),
+                                  "prior": "ours", "TRAIN_VAE": 1,
+                                  "TRAIN_prior": 1,
+                                  "async_checkpoint": async_checkpoint})
+
+
+def _save_all(mgr, params, extra):
+    mgr.save(params, model="joint")
+    mgr.save_full({"params": params, "step": np.asarray(3, np.int32)}, extra)
+
+
+def test_async_writer_writes_the_synchronous_bytes(tmp_path, capsys):
+    params, extra = _groups_and_state()
+    sync, asyn = (_manager(tmp_path / name, flag)
+                  for name, flag in (("sync", 0), ("async", 1)))
+    _save_all(sync, params, extra)
+    _save_all(asyn, params, extra)
+    # the caller's arrays change right after the save returns, as the
+    # parameters do under the next in-place Adam update
+    params["encoder"]["a"]["kernel"] += 1.0
+    asyn.flush()
+    for name in ("vae-model", "prior-model", "train-state"):
+        got = (tmp_path / "async" / f"{name}.msgpack").read_bytes()
+        assert got == (tmp_path / "sync" / f"{name}.msgpack").read_bytes()
+    out = capsys.readouterr().out
+    assert out.count("Outer VAE model saved.") == 2
+    assert out.count("Prior model saved.") == 2
+
+
+def test_snapshot_copies_tensors_and_arrays():
+    t = torch.arange(4.0)
+    a = np.arange(3.0)
+    snap = tck._snapshot({"t": t, "a": [a, 5]})
+    t += 1
+    a += 1
+    np.testing.assert_array_equal(snap["t"], np.arange(4.0))
+    np.testing.assert_array_equal(snap["a"][0], np.arange(3.0))
+    assert snap["a"][1] == 5 and isinstance(snap["t"], np.ndarray)
+
+
+def test_async_writer_error_is_sticky_until_reset():
+    writer = tck.AsyncCheckpointWriter()
+    ran = []
+
+    def fail():
+        raise OSError("disk full")
+
+    writer.submit(fail)
+    with pytest.raises(RuntimeError, match="sticky") as err:
+        writer.flush()
+    assert isinstance(err.value.__cause__, OSError)
+    with pytest.raises(RuntimeError):
+        writer.submit(lambda: ran.append(1))
+    with pytest.raises(RuntimeError):
+        writer.flush()
+    assert ran == []
+    writer.reset_error()
+    writer.submit(lambda: ran.append(1))
+    writer.flush()
+    assert ran == [1]
+
+
+def test_async_read_after_write_sees_the_pending_save(tmp_path, monkeypatch):
+    params, extra = _groups_and_state()
+    mgr = _manager(tmp_path, 1)
+    gate = __import__("threading").Event()
+    real = tck.save_msgpack
+
+    def slow_save(path, tree):
+        gate.wait(10)
+        real(path, tree)
+
+    monkeypatch.setattr(tck, "save_msgpack", slow_save)
+    _save_all(mgr, params, extra)
+    assert not os.path.exists(mgr.path_state)   # still queued
+    gate.set()
+    template = {k: {kk: {kkk: np.zeros_like(vvv) for kkk, vvv in vv.items()}
+                    if isinstance(vv, dict) else np.zeros_like(vv)
+                    for kk, vv in v.items()} for k, v in params.items()}
+    loaded = mgr.load(mgr.load(template, "VAE"), "prior")
+    _assert_same_tree(loaded, params)
+    state, got_extra = mgr.load_full()
+    _assert_same_tree(state["params"], {k: params[k] for k in sorted(params)})
+    assert int(got_extra["cur_epoch"]) == 2
+
+
+def test_trainer_with_async_checkpoints_writes_the_same_files(tmp_path):
+    """One tiny mnist_digit epoch with async_checkpoint 1 and with 0, the
+    same seed: the same checkpoint files, byte for byte."""
+    from ladder_tpu_torch.data.mnist import DataGenerator
+    from ladder_tpu_torch.models.builder import make_model
+    from ladder_tpu_torch.training.trainer import MNISTTrainer
+    from ladder_tpu_torch.utils.config import create_dirs
+    from tests.conftest import make_config
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    files = {}
+    try:
+        for flag in (0, 1):
+            cfg = make_config(num_epochs=1, sg_pretraining=0,
+                              accurate_fit=1, synthetic_n_train=128,
+                              synthetic_n_test=128, num_hidden_units=64,
+                              num_hidden_units_inner_VAE=8,
+                              n_layers_inner_VAE=2, n_MC_samples=2,
+                              n_mixtures=3, enable_plots=0,
+                              async_checkpoint=flag)
+            cfg["result_dir"] = str(tmp_path / f"r{flag}") + "/"
+            cfg["checkpoint_dir"] = str(tmp_path / f"c{flag}") + "/"
+            create_dirs([cfg["result_dir"], cfg["checkpoint_dir"]])
+            trainer = MNISTTrainer(make_model(cfg, seed=1),
+                                   DataGenerator(cfg), cfg, device="cpu")
+            trainer.train()
+            files[flag] = {p.name: p.read_bytes() for p in
+                           Path(cfg["checkpoint_dir"]).glob("*.msgpack")}
+    finally:
+        torch.set_num_threads(before)
+    assert sorted(files[1]) == sorted(files[0]) == [
+        "prior-model.msgpack", "train-state.msgpack", "vae-model.msgpack"]
+    for name in files[0]:
+        assert files[1][name] == files[0][name], name

@@ -456,3 +456,70 @@ def test_interp_phase_configs_and_launch_count():
     assert (gmm["prior"], gmm["num_epochs"], gmm["sg_pretraining"],
             gmm["load_model"], gmm["synthetic_n_train"]) == (
         "GMM", 2, 1, 0, 8192)
+
+
+def test_utils_phase_rehearsal_on_cpu(tmp_path, capsys):
+    """Phase 8 on the CPU: prior samples of the pretrained mnist_digit
+    model's five priors and of CelebA at h=16 from seeded groups, the
+    exports of both engines at batch 4, an async-checkpoint epoch of the
+    pretrained mnist_digit model on 256 images, the FID over 16 images
+    each, and the refused plots: every check of the phase (the CPU
+    replays equal to the runs themselves, the launches counted as none),
+    then its log."""
+    from ladder_tpu_torch.utils.checkpoint import save_gm_prior_info
+
+    small = dict(SMALL_CELEBA, **chip_smoke.UTILS_CELEBA_OVERRIDES)
+    celeba_root = _groups(tmp_path, _demo_cfg(chip_smoke.CONFIG, small),
+                          "celeba")
+    groups = f"{celeba_root}/celeba"
+    rng = np.random.default_rng(0)
+    save_gm_prior_info(groups, np.full(3, 1 / 3), rng.standard_normal((3, 2)),
+                       np.stack([np.eye(2) * 0.5] * 3))
+    celeba_cfg = chip_smoke._demo_config(chip_smoke.CONFIG, small,
+                                         celeba_root, str(tmp_path / "c"))
+    mnist_cfg = chip_smoke._demo_config(
+        chip_smoke.MNIST_CONFIG, chip_smoke.UTILS_MNIST_OVERRIDES,
+        str(chip_smoke.ROOT) + "/pretrained_models", str(tmp_path / "m"))
+    res = chip_smoke.drive_utils(
+        "cpu", sampling=dict(celeba_overrides=small, celeba_groups=groups),
+        export_cfgs=(celeba_cfg, mnist_cfg), fid_cfg=celeba_cfg,
+        fid_images=16, serve_batch=4, repeats=1,
+        async_overrides=dict(chip_smoke.ASYNC_OVERRIDES,
+                             synthetic_n_train=256, synthetic_n_test=128,
+                             n_MC_samples=4, batch_size=64))
+    assert not any(res["launches"].values())  # CPU tensors launch nothing
+    assert [r["label"] for r in res["sampling"]] == [
+        "mnist_digit ours", "mnist_digit GMM", "mnist_digit standard_gaussian",
+        "mnist_digit hierarchical", "mnist_digit vampPrior", "CelebA-128 ours"]
+    assert all(r["cpu_max_abs"] == 0.0 for r in res["sampling"])
+    assert res["sampling"][-1]["shape"] == (100, 128, 128, 3)
+    assert res["sampling"][-1]["name"] == chip_smoke.UTILS_CELEBA_NAME
+    celeba, mnist = res["export"]
+    assert sorted(celeba["paths"]) == ["decode", "decode_representation",
+                                       "encode", "reconstruct", "represent"]
+    assert sorted(mnist["paths"]) == sorted(celeba["paths"])
+    assert all(row["max_abs"] == 0.0 and row["launches"] == 0
+               for e in res["export"] for row in e["paths"].values())
+    assert res["async"]["run"]["group_updates"]["ae"] == 4
+    assert set(res["async"]["bytes"]) == set(chip_smoke.CHECKPOINT_FILES)
+    assert res["fid"]["rel"] == 0.0 and res["fid"]["card"] > 0
+    assert "matplotlib" in res["plots"]["message"]
+    chip_smoke.log_utils(res, "cpu")
+    out = capsys.readouterr().out
+    assert "async checkpoints on cpu" in out
+    assert "export CelebA-128 ours on cpu" in out
+
+
+def test_utils_phase_configs():
+    cfg = _demo_cfg(chip_smoke.MNIST_CONFIG,
+                    chip_smoke.UTILS_MNIST_OVERRIDES)
+    # epoch 20 of sg_pretraining 10 and accurate_fit 10: 'ours' samples its
+    # accurate fit; num_epochs 0: so does 'GMM'
+    assert (cfg["sg_pretraining"], cfg["accurate_fit"],
+            cfg["num_epochs"]) == (10, 10, 0)
+    celeba = _demo_cfg(chip_smoke.CONFIG, chip_smoke.UTILS_CELEBA_OVERRIDES)
+    assert (celeba["num_hidden_units"], celeba["code_size"],
+            celeba["sg_pretraining"], celeba["accurate_fit"]) == (
+        512, 256, 10, 3)
+    assert chip_smoke.UTILS_CELEBA_EPOCH % 3 == 0
+    assert chip_smoke.ASYNC_OVERRIDES["async_checkpoint"] == 1

@@ -222,3 +222,38 @@ def test_package_imports_without_matplotlib():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "matplotlib" in proc.stdout
+
+
+def test_sources_cover_the_utilities_slice():
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("serving/export.py", "utils/fid.py", "utils/tf1_import.py",
+                 "utils/plotting.py", "training/trainer.py"):
+        assert f"ladder_tpu_torch/{name}" in covered
+
+
+def test_package_imports_as_on_the_card():
+    """Every module imports with the forbidden roots and matplotlib all
+    blocked, as on the card's machine; the plotting trainer, the export
+    and FID modules among them."""
+    blocked = "; ".join(f"sys.modules[{m!r}] = None"
+                        for m in sorted(FORBIDDEN | {"matplotlib"}))
+    code = (
+        "import sys, importlib, pkgutil\n"
+        f"{blocked}\n"
+        "import ladder_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    ladder_tpu_torch.__path__, 'ladder_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import torch\n"
+        "print(hasattr(torch.ops.ladder_tpu_torch, 'norm_chain_fwd'),\n"
+        "      sorted(n for n in names if n.endswith(('export', 'fid',\n"
+        "             'tf1_import', 'plotting'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split(None, 1)[0] == "True"
+    for name in ("serving.export", "utils.fid", "utils.tf1_import",
+                 "utils.plotting"):
+        assert f"ladder_tpu_torch.{name}" in proc.stdout

@@ -243,10 +243,8 @@ def test_the_writer_matches_flax_on_a_train_state(runs):
 
 @pytest.mark.parametrize("override, match", [
     ({"gmm_backend": "sklearn"}, "scikit-learn"),
-    ({"enable_plots": 1}, "enable_plots"),
     ({"mesh_shape": [2]}, "one device"),
-    ({"checkpoint_backend": "orbax"}, "msgpack backend"),
-    ({"async_checkpoint": 1}, "asynchronous")])
+    ({"checkpoint_backend": "orbax"}, "msgpack backend")])
 def test_unported_options_raise_at_construction(tmp_path, override, match):
     cfg = _dirs(make_config(**{**TINY, **override}), tmp_path)
     with pytest.raises(NotImplementedError, match=match):
