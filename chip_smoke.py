@@ -41,8 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Training the pretrained mnist_digit model (demo/mnist_digit_config.json:
    h=256, code 16, t in 2-D, inner VAE 5x512, 50 mixtures, 100 MC samples,
    batch 256) through ``python -m ladder_tpu_torch.train``'s main, in this
-   process, on synthetic MNIST at MNIST's split sizes (60,000 + 10,000):
-   2 epochs from the pretrained checkpoint groups, then a rerun with
+   process, on 20,000 + 4,096 synthetic MNIST images (a third of MNIST's
+   training split, to keep the script's time): 2 epochs from the
+   pretrained checkpoint groups, then a rerun with
    num_epochs 3 that resumes from the full train state. Checks: the first
    step against the CPU's at batch 8, finite curves, the result npz over
    the 3 epochs, GM_prior_info.npz, both checkpoint groups rewritten and
@@ -99,11 +100,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the ImportError of a trainer with enable_plots 1 and no
    matplotlib. Logs the export time, the loaded paths' and the engine's
    latencies, the time a save blocks the epoch both ways, and the FID.
+9. Data parallelism: ``LADDER_DISTRIBUTED=1 torchrun --standalone
+   --nproc_per_node N -m ladder_tpu_torch.train`` in subprocesses, each
+   rank writing a ``--report``. The machine has one card and NCCL cannot
+   put two ranks on it, so 2 ranks share cuda:0 over gloo (its CUDA
+   collectives staged through the host), and 1 rank runs over NCCL. (1)
+   The pretrained CelebA-128 'ours' model in float32 mode 1 on 256
+   synthetic images, 1 epoch of 4 steps at global batch 64: one process
+   (in this process), 2 gloo ranks x 32 and 1 NCCL rank, each held to the
+   one process: the first-step loss within TRAIN_METRIC_RTOL, the curves
+   within PARALLEL_CURVE_RTOL, the parameters after the epoch within
+   TRAIN_PARAM_MAX_LR lr per step; the ranks bitwise equal (a digest of
+   parameters, moments and GM fits); every rank's launches of the five
+   kernels against its epoch's count; K1, K3 and K4 against their plain
+   versions at the local batch of 32; two NCCL ranks on the one card
+   refused. (2) codes/celeba_scaled_config.json as it stands but for
+   SCALED_OVERRIDES (2 ranks, fresh init, 2,048 images, 1 epoch, global
+   batch 512), then the same config in one process: finite curves,
+   bitwise ranks, the launches, the first-step loss within
+   SCALED_LOSS_RTOL. (3) The pretrained mnist_digit model as 2 ranks x
+   128 on 8,192 images for 1 epoch, then resumed to 2: every artifact
+   written once (the files of a one-process run, one summary line per
+   epoch), the result keys, the ranks' GM fits and validation equal.
+   Logs per run and rank the step time, the gradient all-reduce's bytes,
+   calls and host time a step, the profile of steps 2-4 (device busy and
+   idle share, copies, the collectives' host time) and the peak memory.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result.
-``--only build|kernels|serving|training|mnist|celeba|interp|utils`` runs a part
+``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel`` runs a part
 of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
@@ -139,9 +165,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = "demo/celeba_config.json"
 MNIST_CONFIG = "demo/mnist_digit_config.json"
 # Phase 5: the pretrained mnist_digit model at its published widths on
-# synthetic MNIST at MNIST's split sizes, 2 epochs, then resumed to 3.
-MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 60000,
-                   "synthetic_n_test": 10000, "num_epochs": 2,
+# 20,000 + 4,096 synthetic images (cut from MNIST's 60,000 + 10,000 when
+# phase 9 came: 78 steps an epoch), 2 epochs, then resumed to 3.
+MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 20000,
+                   "synthetic_n_test": 4096, "num_epochs": 2,
                    "sg_pretraining": 1, "accurate_fit": 2,
                    "enable_plots": 0}
 MNIST_PROFILE_STEPS = 10
@@ -1421,10 +1448,10 @@ def adam_updates(trainer, t_before):
             for g, o in trainer.state["opt"].items()}
 
 
-def _run_train_cli(workdir, config_path, device):
+def _run_train_cli(workdir, config_path, device, extra=()):
     """ladder_tpu_torch.train.main in workdir (its result directory is
-    relative to the working directory); (trainer, its console output,
-    seconds, kernel launches)."""
+    relative to the working directory), ``extra`` added to its arguments;
+    (trainer, its console output, seconds, kernel launches)."""
     import contextlib
     from ladder_tpu_torch import train
 
@@ -1436,7 +1463,7 @@ def _run_train_cli(workdir, config_path, device):
     try:
         with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
             trainer = train.main(["--config", config_path, "--device",
-                                  device])
+                                  device, *extra])
         _sync(device)
     finally:
         os.chdir(old)
@@ -1698,8 +1725,8 @@ class _Recorder:
         self.real_epoch = trainer_mod.JointTrainer.train_epoch
         recorder = self
 
-        def make_train_step(model):
-            step = recorder.real_step(model)
+        def make_train_step(model, *args, **kw):
+            step = recorder.real_step(model, *args, **kw)
 
             def recorded(state, batch, *args, **kw):
                 if len(recorder.batches) < recorder.keep:
@@ -2797,6 +2824,588 @@ def log_utils(result, smi):
     log(f"  phase 8 launches {result['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: data-parallel training across processes through torchrun
+# ---------------------------------------------------------------------------
+
+PHASE9 = ("== phase 9: data-parallel training through torchrun -m "
+          "ladder_tpu_torch.train (2 gloo ranks on the one card, 1 NCCL "
+          "rank)")
+# (1) parity: the pretrained CelebA-128 'ours' model (demo/celeba_config.json)
+# in float32 mode 1, TF32 off, on 256 train / 128 validation / 128 test
+# synthetic images: 1 epoch, 4 steps at global batch 64, as one process and
+# as 2 gloo ranks x 32 rows on the one card
+PARALLEL_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 256,
+                      "synthetic_n_val": 128, "synthetic_n_test": 128,
+                      "num_epochs": 1, "sg_pretraining": 1,
+                      "accurate_fit": 2, "enable_plots": 0,
+                      "mesh_shape": [2]}
+PARALLEL_RANKS = 2
+# 2 ranks against 1 process: the first-step loss within the card-vs-CPU
+# bound of a first step (TRAIN_METRIC_RTOL, the same ops summed in another
+# order), the curves within tests/test_multiprocess.py:200-212's band, the
+# parameters after the epoch within TRAIN_PARAM_MAX_LR lr per step taken
+# (each step may flip the sign of a gradient of rounding size, which Adam
+# turns into a step of lr either way)
+PARALLEL_CURVE_RTOL = 2e-3
+# (2) the repo's scaled recipe as it stands, cut: 2 gloo ranks on the one
+# card instead of 8 (mesh_shape [8] over 2 ranks), a fresh init from the
+# seed, 2,048 synthetic images (128 validation, 64 test), 1 epoch, global
+# batch 512 (256 rows a rank)
+SCALED_CONFIG = "codes/celeba_scaled_config.json"
+SCALED_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 2048,
+                    "synthetic_n_val": 128, "synthetic_n_test": 64,
+                    "num_epochs": 1, "enable_plots": 0}
+# bf16, one process against 2 ranks, first-step loss: the same bf16
+# arithmetic per row, but cuDNN may pick other algorithms at 512 rows than at
+# 256, and each bf16 activation then rounds differently (2**-8 relative);
+# the loss sums them over 512 x 49,152 pixels, where they average out far
+# below 1e-2 (phase 6 holds bf16 against float32 within 5e-2)
+SCALED_LOSS_RTOL = 1e-2
+# (3) the pretrained mnist_digit model (demo/mnist_digit_config.json), 2
+# ranks x 128 rows on 8,192 synthetic images, 1 epoch then resumed to 2; plots
+# off (the card's machine has no matplotlib: tests/test_torch_multiprocess.py
+# runs the lead-only plots on the CPU)
+PARALLEL_MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 8192,
+                            "synthetic_n_test": 2048, "num_epochs": 1,
+                            "sg_pretraining": 1, "accurate_fit": 2,
+                            "enable_plots": 0, "mesh_shape": [2]}
+
+
+def _torchrun(work, config_path, nproc, device=None, backend=None,
+              package=ROOT):
+    """Start LADDER_DISTRIBUTED=1 torchrun --standalone --nproc_per_node
+    nproc -m ladder_tpu_torch.train --config config_path in work, each rank
+    writing work/report{rank}.json; (process, start time)."""
+    env = dict(os.environ, LADDER_DISTRIBUTED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [package] + [p for p in [os.environ.get("PYTHONPATH")]
+                                if p]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", "ladder_tpu_torch.train",
+           "--config", config_path,
+           "--report", os.path.join(work, "report{rank}.json")]
+    cmd += ["--device", device] if device else []
+    cmd += ["--backend", backend] if backend else []
+    proc = subprocess.Popen(cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def _finish(started, timeout=600):
+    """Wait for a _torchrun; (exit code, output, seconds)."""
+    proc, t0 = started
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def _ranks_run(label, work, config_path, nproc, device=None, backend=None,
+               started=None):
+    """A torchrun run (started here, or given as ``started``) that must
+    succeed; its ranks' reports, which must hold bitwise-equal parameters,
+    moments and GM fits."""
+    code, out, seconds = _finish(
+        started or _torchrun(work, config_path, nproc, device, backend))
+    if code != 0:
+        raise AssertionError(f"{label}: torchrun exited {code}:\n"
+                             f"{out[-6000:]}")
+    reports = []
+    for r in range(nproc):
+        with open(os.path.join(work, f"report{r}.json")) as f:
+            reports.append(json.load(f))
+    if len({r["digest"] for r in reports}) != 1:
+        raise AssertionError(f"{label}: the ranks' parameters, moments and "
+                             "GM fits differ")
+    if [(r["rank"], r["world"]) for r in reports] != [
+            (r, nproc) for r in range(nproc)]:
+        raise AssertionError(f"{label}: ranks {[r['rank'] for r in reports]}")
+    return {"label": label, "reports": reports, "seconds": seconds,
+            "out": out}
+
+
+def _one_run(label, work, config_path, device):
+    """The same CLI in this process, without LADDER_DISTRIBUTED; its
+    report and launches."""
+    report = os.path.join(work, "report0.json")
+    trainer, out, seconds, launches = _run_train_cli(
+        work, config_path, device, ("--report", report))
+    with open(report) as f:
+        rep = json.load(f)
+    return {"label": label, "reports": [rep], "seconds": seconds,
+            "out": out, "trainer": trainer, "launches": launches}
+
+
+def _write_config(work, name, raw):
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _results(work, cfg):
+    """The lead's {exp}-result.npz in work, as a dict."""
+    from ladder_tpu_torch.utils.config import process_config
+    import contextlib
+    with contextlib.redirect_stdout(io.StringIO()):
+        dirs = process_config(os.path.join(work, "config.json"))
+    path = os.path.join(work, dirs["result_dir"],
+                        f"{cfg['exp_name']}-result.npz")
+    with np.load(path) as r:
+        return {k: r[k] for k in r.files}, dirs
+
+
+# the curves held to PARALLEL_CURVE_RTOL: tests/test_multiprocess.py's
+# (train loss, sigma, validation loss) and the ELBO's
+PARALLEL_CURVES = ("train_loss", "elbo_train", "sigma", "val_loss",
+                   "elbo_val")
+
+
+def _curve_gaps(got, want):
+    """Per curve both results hold, the largest relative gap (each value
+    relative to the larger of its |value| and 1e-6 of the curve's
+    largest); raises on a curve of another shape or not finite."""
+    gaps = {}
+    for key, w in want.items():
+        a, b = np.asarray(got[key], float), np.asarray(w, float)
+        if a.shape != b.shape:
+            raise AssertionError(f"curve {key}: {a.shape} vs {b.shape}")
+        if not b.size:
+            continue
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            raise AssertionError(f"curve {key} is not finite")
+        scale = np.maximum(np.abs(b), 1e-6 * np.abs(b).max() + 1e-30)
+        gaps[key] = float((np.abs(a - b) / scale).max())
+    return gaps
+
+
+def _param_gap(work_a, work_b, dirs_a, dirs_b, lr):
+    """max and mean |a - b| over both checkpoint groups, in units of lr."""
+    from ladder_tpu_torch.utils.checkpoint import load_msgpack
+    worst, total, n = 0.0, 0.0, 0
+    for name in ("vae-model.msgpack", "prior-model.msgpack"):
+        a = load_msgpack(os.path.join(work_a, dirs_a["checkpoint_dir"], name))
+        b = load_msgpack(os.path.join(work_b, dirs_b["checkpoint_dir"], name))
+        for x, y in zip(_tree_leaves(a), _tree_leaves(b)):
+            d = np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64))
+            worst = max(worst, float(d.max()) if d.size else 0.0)
+            total += float(d.sum())
+            n += d.size
+    return worst / lr, total / max(n, 1) / lr
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k])
+    else:
+        yield tree
+
+
+def _epoch_launches(cfg, mode, steps, evals, device):
+    """Launches of one CelebA epoch (expected_epoch_launches), with the
+    prior groups only where prior training has started (cur_epoch 1 >
+    sg_pretraining - 1)."""
+    import torch
+    if 1 > cfg["sg_pretraining"] - 1:
+        return expected_epoch_launches(cfg, mode, steps, evals,
+                                       1 <= cfg["sg_pretraining"], device)
+    if torch.device(device).type != "cuda":
+        return dict.fromkeys(kernel_counters(), 0)
+    passes = 2 if mode == 1 else 1  # ae and sigma
+    return {"norm_chain_fwd": 4 * passes * steps + 4 * evals,
+            "norm_chain_bwd": 4 * steps,
+            "output_stage_fwd": passes * steps + evals,
+            "output_stage_bwd": steps, "adam_update": 2 * steps}
+
+
+def _check_rank_launches(label, run, want):
+    for rep in run["reports"]:
+        if rep["launches"] != want:
+            raise AssertionError(f"{label}: rank {rep['rank']} launched "
+                                 f"{rep['launches']}, expected {want}")
+
+
+def local_batch_kernel_checks(batch):
+    """K1, K3 and K4 against their plain versions once at a rank's local
+    batch (float32), a grid that phase 2's batch-64 checks do not cover.
+    Returns each check's max abs error."""
+    import torch
+    from ladder_tpu_torch.ops import norm_chain as nc
+    from ladder_tpu_torch.ops import output_stage as ost
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    errs = {}
+    for shape, _ in NORM_CHAIN_STAGES:
+        shape = (batch,) + tuple(shape[1:])
+        x, scale, shift = _norm_chain_inputs(shape, torch.float32, gen)
+        got = nc.fused_instnorm_style_lrelu(x, scale, shift)
+        torch.cuda.synchronize()
+        name = f"norm_chain_fwd {list(shape)}"
+        errs[name] = _hold_rounded(name, got, nc.norm_chain_reference(
+            x, scale, shift), torch.float32)
+    b, c, h, w = (batch,) + tuple(OUTPUT_STAGE_SHAPE[1:])
+    weight = 0.2 * torch.randn((3, c), generator=gen, device="cuda")
+    bias = 0.1 * torch.randn((3,), generator=gen, device="cuda")
+    target = torch.rand((b, 3, h, w), generator=gen, device="cuda")
+    u = torch.randn((b, c, h, w), generator=gen, device="cuda")
+    dec, l1, l2 = ost.fused_output_recon(u, weight, bias, target)
+    torch.cuda.synchronize()
+    dec_p, l1_p, l2_p = ost.output_recon_reference(u, weight, bias, target)
+    name = f"output_stage_fwd {[b, c, h, w]}"
+    errs[name] = _hold_rounded(name, dec, dec_p, torch.float32)
+    _hold(name + " l1", l1, l1_p, 1e-5, 0.0)
+    _hold(name + " l2", l2, l2_p, 1e-5, 0.0)
+    a1 = torch.tensor(0.03, device="cuda")
+    a2 = torch.tensor(0.01, device="cuda")
+    got = ost.output_recon_backward(u, weight, dec, target, a1, a2, None)
+    torch.cuda.synchronize()
+    want = ost.output_recon_bwd_reference(u, weight, dec, target, a1, a2,
+                                          None)
+    name = f"output_stage_bwd {[b, c, h, w]}"
+    errs[name] = max(
+        _hold_rounded(name + " du", got[0], want[0], torch.float32),
+        *(_hold(f"{name} {part}", a, p_, SUM_RTOL,
+                SUM_RTOL * p_.abs().max().item())
+          for part, a, p_ in (("dW8", got[1], want[1]),
+                              ("db8", got[2], want[2]))))
+    return errs
+
+
+def drive_parallel(device, overrides=PARALLEL_OVERRIDES,
+                   scaled_overrides=SCALED_OVERRIDES,
+                   mnist_overrides=PARALLEL_MNIST_OVERRIDES,
+                   groups=os.path.join(ROOT, "pretrained_models", "celeba"),
+                   mnist_groups=os.path.join(ROOT, "pretrained_models",
+                                             "mnist_digit"),
+                   ranks=PARALLEL_RANKS, profile=True):
+    """Phase 9 (see the module docstring); every check of the phase.
+    ``device`` is the card's 'cuda' or, to rehearse, 'cpu' (the ranks on
+    the CPU over gloo, the NCCL runs replaced by one gloo rank).
+    ``profile``: trace the first epoch of the runs of (1) and (2). The runs
+    whose times are logged run alone; the NCCL runs run beside (3)."""
+    import shutil
+    import tempfile
+    import torch
+    from ladder_tpu_torch.data.celeba import ensure_synthetic_tfrecords
+    from ladder_tpu_torch.training import schedules
+    from ladder_tpu_torch.utils.config import apply_defaults
+
+    on_card = torch.device(device).type == "cuda"
+    rank_device = "cuda:0" if on_card else "cpu"
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    res = {"runs": {}}
+
+    def config(name, raw, prof):
+        w = os.path.join(work, name)
+        if prof and profile:
+            raw = dict(raw, profile_dir=os.path.join(w, "profile"))
+        return w, _write_config(w, "config.json", raw)
+
+    try:
+        cfg = celeba_config(overrides)
+        with open(os.path.join(ROOT, SCALED_CONFIG)) as f:
+            scfg = apply_defaults(dict(json.load(f), **scaled_overrides))
+        sdata = os.path.join(work, "scaled_data") + "/"
+        # (2)'s synthetic TFRecords, written while (1) runs
+        synth = threading.Thread(target=ensure_synthetic_tfrecords, args=(
+            sdata, scfg["synthetic_n_train"], scfg["synthetic_n_val"],
+            scfg["synthetic_n_test"], scfg["seed"], scfg["dim_input_x"]))
+        synth.start()
+
+        # ---- (1) parity: one process, then the ranks --------------------
+        bs = cfg["batch_size"]
+        steps = cfg["synthetic_n_train"] // bs
+        evals = 1 + cfg["synthetic_n_val"] // bs
+        data = os.path.join(work, "celeba_data") + "/"
+        runs = {}
+        for name in ("one", "ranks", "nccl"):
+            w = os.path.join(work, f"parity_{name}")
+            _copy_groups(groups, w, cfg["exp_name"])
+            w, path = config(f"parity_{name}", dict(
+                cfg, data_path=data, load_dir=w + "/"), name != "nccl")
+            if name == "one":
+                runs[name] = _one_run("parity, one process", w, path, device)
+                runs[name].pop("trainer")
+            elif name == "ranks":
+                runs[name] = _ranks_run(
+                    f"parity, {ranks} gloo ranks", w, path, ranks,
+                    rank_device, "gloo")
+            else:  # run beside (3)
+                runs[name] = {"path": path}
+            runs[name]["work"] = w
+        if on_card:
+            res["local_batch"] = local_batch_kernel_checks(bs // ranks)
+        synth.join()
+
+        # ---- (2) the scaled recipe --------------------------------------
+        sruns = {}
+        for name in ("ranks", "one"):
+            w, path = config(f"scaled_{name}", dict(scfg, data_path=sdata),
+                             True)
+            if name == "ranks":
+                sruns[name] = _ranks_run(f"scaled recipe, {ranks} gloo ranks",
+                                         w, path, ranks, rank_device, "gloo")
+            else:
+                if on_card:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                sruns[name] = _one_run("scaled recipe, one process", w, path,
+                                       device)
+                sruns[name].pop("trainer")
+                if on_card:
+                    torch.cuda.empty_cache()
+            sruns[name]["work"] = w
+
+        # ---- (3) the mnist trainer, the NCCL runs beside it -------------
+        nccl = runs["nccl"]
+        nccl["started"] = _torchrun(nccl["work"], nccl["path"], 1,
+                                    None if on_card else "cpu")
+        dup = None
+        if on_card:  # NCCL refuses two ranks on one card: the CLI says so
+            w = os.path.join(work, "nccl_two")
+            _copy_groups(groups, w, cfg["exp_name"])
+            w, path = config("nccl_two", dict(cfg, data_path=data,
+                                              load_dir=w + "/"), False)
+            dup = _torchrun(w, path, 2, "cuda:0", "nccl")
+        mcfg = mnist_config(mnist_overrides)
+        mruns = {}
+        for name, epochs in (("ranks", 1), ("resumed", 2), ("one", 1)):
+            w = os.path.join(work, "mnist_one" if name == "one"
+                             else "mnist_ranks")
+            if not os.path.isdir(w):
+                _copy_groups(mnist_groups, w, mcfg["exp_name"])
+            w, path = config(os.path.basename(w), dict(
+                mcfg, load_dir=w + "/", num_epochs=epochs), False)
+            if name == "one":
+                mruns[name] = _one_run("mnist, one process", w, path, device)
+                mruns[name].pop("trainer")
+            else:
+                mruns[name] = _ranks_run(f"mnist to epoch {epochs}, {ranks} "
+                                         "gloo ranks", w, path, ranks,
+                                         rank_device, "gloo")
+                mruns[name]["files"] = _artifact_files(w)
+            mruns[name]["work"] = w
+        runs["nccl"] = _ranks_run(
+            "parity, 1 NCCL rank" if on_card else "parity, 1 gloo rank",
+            nccl["work"], None, 1, started=nccl["started"])
+        runs["nccl"]["work"] = nccl["work"]
+        if dup is not None:
+            code, said, _ = _finish(dup)
+            if code == 0 or "same card" not in said:
+                raise AssertionError("two NCCL ranks on one card did not "
+                                     f"raise:\n{said[-3000:]}")
+
+        # ---- the checks -------------------------------------------------
+        want = _epoch_launches(cfg, 1, steps, evals, device)
+        one = runs["one"]
+        if one["launches"] != want:
+            raise AssertionError(f"parity, one process: launched "
+                                 f"{one['launches']}, expected {want}")
+        want_results, want_dirs = _results(one["work"], cfg)
+        lr = max(max(schedules.all_lrs(cfg, 1).values()),
+                 schedules.lr_ae_celeba(cfg, 1))
+        for name in ("ranks", "nccl"):
+            run = runs[name]
+            _check_rank_launches(run["label"], run, want)
+            first = run["reports"][0]["train_loss"][0]
+            ref = one["reports"][0]["train_loss"][0]
+            run["first_loss_gap"] = abs(first / ref - 1)
+            if run["first_loss_gap"] > TRAIN_METRIC_RTOL:
+                raise AssertionError(f"{run['label']}: first-step loss "
+                                     f"{first} vs one process {ref}")
+            got_results, got_dirs = _results(run["work"], cfg)
+            run["curve_gaps"] = _curve_gaps(got_results, want_results)
+            run["curve_gap"] = max(run["curve_gaps"][k]
+                                   for k in PARALLEL_CURVES)
+            if run["curve_gap"] > PARALLEL_CURVE_RTOL:
+                raise AssertionError(f"{run['label']}: curves "
+                                     f"{run['curve_gaps']} from one "
+                                     "process's")
+            run["param_gap"] = _param_gap(run["work"], one["work"], got_dirs,
+                                          want_dirs, lr)
+            if run["param_gap"][0] > TRAIN_PARAM_MAX_LR * steps:
+                raise AssertionError(f"{run['label']}: parameters "
+                                     f"{run['param_gap'][0]} lr from one "
+                                     "process's")
+        ssteps = scfg["synthetic_n_train"] // scfg["batch_size"]
+        want = _epoch_launches(scfg, scfg["fused_train_step"], ssteps,
+                               1 + scfg["synthetic_n_val"] // scfg[
+                                   "batch_size"], device)
+        _check_rank_launches("scaled recipe", sruns["ranks"], want)
+        results, _ = _results(sruns["ranks"]["work"], scfg)
+        _curve_gaps(results, results)  # finite
+        first = sruns["ranks"]["reports"][0]["train_loss"][0]
+        ref = sruns["one"]["reports"][0]["train_loss"][0]
+        sruns["ranks"]["first_loss_gap"] = abs(first / ref - 1)
+        if sruns["ranks"]["first_loss_gap"] > SCALED_LOSS_RTOL:
+            raise AssertionError(f"scaled recipe: first-step loss {first} on "
+                                 f"the ranks vs {ref} in one process")
+        _check_parallel_mnist(mruns, mcfg, on_card)
+        for prefix, group in (("parity", runs), ("scaled", sruns),
+                              ("mnist", mruns)):
+            res["runs"].update({f"{prefix}_{k}": v for k, v in group.items()})
+        res.update(cfg=cfg, steps=steps, scaled_cfg=scfg,
+                   scaled_steps=ssteps, mnist_cfg=mcfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def _artifact_files(work):
+    """The files a run wrote under work, less the reports, the configs and
+    the copied checkpoint groups' directory listing itself."""
+    out = []
+    for root, _, files in os.walk(work):
+        for name in files:
+            rel = os.path.relpath(os.path.join(root, name), work)
+            if (name.startswith(("report", "training_config_"))
+                    or name == "config.json" or rel.startswith("profile")):
+                continue
+            out.append(rel)
+    return sorted(out)
+
+
+def _check_parallel_mnist(runs, cfg, on_card):
+    """Every artifact once, by the lead: the same files as one process's
+    and one summary line per epoch; the result keys as one process's; the
+    ranks' GM fits (in the digest) and validation curves equal; the resume
+    on both ranks; the Adam kernel on both ranks."""
+    one = _artifact_files(runs["one"]["work"])
+    if runs["ranks"]["files"] != one:
+        raise AssertionError(f"mnist: the ranks wrote {runs['ranks']['files']}"
+                             f", one process {one}")
+    for name, epochs in (("ranks", 1), ("resumed", 2)):
+        run = runs[name]
+        reps = run["reports"]
+        if len({json.dumps(r["val_loss"]) for r in reps}) != 1:
+            raise AssertionError(f"{run['label']}: validation differs across "
+                                 "ranks")
+        if any([t["epoch"] for t in r["timings"]] != [epochs] for r in reps):
+            raise AssertionError(f"{run['label']}: the ranks trained "
+                                 f"{[[t['epoch'] for t in r['timings']] for r in reps]}")
+        if len({json.dumps(r["launches"]) for r in reps}) != 1 or (
+                on_card and reps[0]["launches"]["adam_update"] <= 0):
+            raise AssertionError(f"{run['label']}: launches "
+                                 f"{[r['launches'] for r in reps]}")
+    summary = [f for f in runs["resumed"]["files"] if f.endswith(
+        "scalars.jsonl")]
+    with open(os.path.join(runs["resumed"]["work"], summary[0])) as f:
+        if len(f.read().splitlines()) != 2:
+            raise AssertionError("mnist: scalars.jsonl does not hold one line "
+                                 "per epoch")
+    if "Full train state restored (epoch 1)." not in runs["resumed"]["out"]:
+        raise AssertionError("mnist: the resumed ranks did not restore the "
+                             "full train state of epoch 1")
+    keys = [sorted(_results(runs[n]["work"], cfg)[0]) for n in
+            ("resumed", "one")]
+    if keys[0] != keys[1] or keys[1] != sorted(RESULT_KEYS):
+        raise AssertionError(f"mnist: result keys {keys}")
+
+
+def _per_step(run, steps):
+    """Per rank: the step time of steps 2-N under the profiler (its
+    window over its steps) and of the whole epoch (wall over steps, the
+    first step's warm-up included), the gradient all-reduce's MB, calls
+    and host ms a step, the profile's summary and the peak memory."""
+    out = []
+    for rep in run["reports"]:
+        t = rep["timings"][0]
+        coll = (t.get("collectives") or {}).get("grad")
+        prof = t.get("profile")
+        out.append({
+            "step_ms": t["train"]["step_ms"],
+            "profiled_step_ms": (prof["wall_ms"] / prof["steps"]
+                                 if prof else None),
+            "grad_mb": coll["bytes"] / steps / 1e6 if coll else None,
+            "grad_calls": coll["calls"] / steps if coll else None,
+            "grad_host_ms": coll["seconds"] / steps * 1e3 if coll else None,
+            "profile": prof,
+            "peak_gb": (rep["peak_memory_bytes"] / 1e9
+                        if rep["peak_memory_bytes"] else None)})
+    return out
+
+
+def _fmt_profile(p):
+    if not p:
+        return "no profile (not measured)"
+    coll = ", ".join(f"{k} {v[1]:.2f} ms x{v[0]}" for k, v in
+                     sorted(p["collectives_ms"].items()))
+    return (f"profile of steps 2-{p['steps'] + 1}: device busy "
+            f"{p['device_busy_ms']:.2f} of {p['wall_ms']:.2f} ms (idle "
+            f"share {p['idle_share']:.1%}), host<->device copies "
+            f"{p['copy_ms']:.2f} ms, collectives on the host: "
+            f"{coll or 'none'}")
+
+
+def log_parallel(res, smi):
+    runs = res["runs"]
+    for part, steps, bs in (
+            ("parity", res["steps"], res["cfg"]["batch_size"]),
+            ("scaled", res["scaled_steps"], res["scaled_cfg"]["batch_size"])):
+        log(f"  ({'1' if part == 'parity' else '2'}) {part} runs on {smi} "
+            "(the ranks share one card in time: no scaling number)")
+        for key in sorted(k for k in runs if k.startswith(part)
+                          and k != "parity_nccl"):
+            run = runs[key]
+            log(f"    {run['label']}: {run['seconds']:.1f} s in all")
+            for rep, st in zip(run["reports"], _per_step(run, steps)):
+                line = (f"      rank {rep['rank']}/{rep['world']} "
+                        f"({rep['backend'] or 'no group'}) at global batch "
+                        f"{bs}: step " + (
+                            f"{st['profiled_step_ms']:.2f} ms (steps 2-"
+                            f"{st['profile']['steps'] + 1}, profiler on), "
+                            if st["profiled_step_ms"] else "")
+                        + f"{st['step_ms']:.2f} ms over the epoch with its "
+                        "first step")
+                if st["grad_mb"] is not None:
+                    line += (f"; gradient all-reduce {st['grad_mb']:.2f} MB "
+                             f"in {st['grad_calls']:.0f} calls a step, "
+                             f"{st['grad_host_ms']:.2f} ms a step on the "
+                             "host")
+                if st["peak_gb"] is not None:
+                    line += f"; peak memory {st['peak_gb']:.2f} GB"
+                log(line)
+                log(f"        {_fmt_profile(st['profile'])}")
+            if "first_loss_gap" in run:
+                log(f"      first-step loss gap {run['first_loss_gap']:.3g}")
+            if "curve_gaps" in run:
+                worst = sorted(run["curve_gaps"].items(),
+                               key=lambda kv: -kv[1])[:3]
+                log(f"      curves {run['curve_gap']:.3g} (bound "
+                    f"{PARALLEL_CURVE_RTOL}; of every curve, the largest: "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in worst) + ")")
+                log(f"      parameters {run['param_gap'][0]:.3g} lr max, "
+                    f"{run['param_gap'][1]:.3g} lr mean")
+    log(f"  K1, K3, K4 at the local batch: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in
+                    res.get("local_batch", {}).items()))
+    for key in ("parity_nccl", "mnist_ranks", "mnist_resumed", "mnist_one"):
+        run = runs[key]
+        extra = (f"; first-step loss gap {run['first_loss_gap']:.3g}, "
+                 f"curves {run['curve_gap']:.3g}, parameters "
+                 f"{run['param_gap'][0]:.3g} lr max"
+                 if key == "parity_nccl" else "")
+        log(f"  {run['label']} on {smi}: {run['seconds']:.1f} s in all "
+            f"(beside the others of (3)), launches "
+            f"{[r['launches'] for r in run['reports']]}{extra}")
+
+
+def parallel_launches(res):
+    """Every kernel's launches over phase 9's runs, all ranks summed."""
+    total = dict.fromkeys(kernel_counters(), 0)
+    for run in res["runs"].values():
+        for rep in run["reports"]:
+            total = {k: total[k] + rep["launches"][k] for k in total}
+    return total
+
+
+
 def times_only(package, cfg, peaks):
     """``--only times``: phase 2's checks and times of the norm-chain
     forward at the stage shapes and of the Adam update over the
@@ -2855,7 +3464,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=("build", "kernels", "serving",
                                            "training", "mnist", "celeba",
-                                           "interp", "utils", "times"))
+                                           "interp", "utils", "parallel",
+                                           "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -2933,6 +3543,10 @@ def main(argv=None):
     if only == "utils":
         log(PHASE8)
         log_utils(drive_utils("cuda"), smi)
+        return 0
+    if only == "parallel":
+        log(PHASE9)
+        log_parallel(drive_parallel("cuda"), smi)
         return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
@@ -3061,10 +3675,20 @@ def main(argv=None):
                              "(CelebA decodes) or the Adam update (the "
                              "async-checkpoint epoch)")
     del utils
+    torch.cuda.empty_cache()
+
+    log(PHASE9)
+    parallel = drive_parallel("cuda")
+    log_parallel(parallel, smi)
+    parallel_total = parallel_launches(parallel)
+    missing = [k for k, v in parallel_total.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"phase 9 never launched {missing}")
+    del parallel
 
     total = {k: serving[k] + training[k] + mnist_launches[k]
              + celeba_launches[k] + interp_launches[k] + prior_launches[k]
-             + utils_launches[k] for k in serving}
+             + utils_launches[k] + parallel_total[k] for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -3086,6 +3710,7 @@ def main(argv=None):
         entry["launches_interp"] = interp_launches[entry["name"]]
         entry["launches_priors"] = prior_launches[entry["name"]]
         entry["launches_utils"] = utils_launches[entry["name"]]
+        entry["launches_parallel"] = parallel_total[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -212,12 +212,16 @@ class CelebARecords:
                 for i in range(n_batches)]
 
     def epoch(self, batch_size, seed, drop_remainder=True, prefetch=True,
-              to_device=None):
+              to_device=None, rows=None):
         """uint8 [B,H,W,C] batches of one shuffled epoch: numpy arrays, or
         tensors on the device ``to_device``, placed in the prefetch thread
         (prefetch=True) so that the read and the copy of batch k+1 overlap
-        step k."""
+        step k. ``rows`` (a slice, a data-parallel rank's rows) reads only
+        those rows of each batch's indices."""
         idx_batches = self.epoch_indices(batch_size, seed, drop_remainder)
+        if rows is not None:
+            idx_batches = [ix[rows] for ix in idx_batches]
+            batch_size = len(idx_batches[0]) if idx_batches else 0
         arrive = None
         if to_device is None:
             fetch = self.reader.read_batch

@@ -240,11 +240,13 @@ def epoch_batches(images, batch_size, epoch_seed, drop_remainder=True):
         yield images[idx]
 
 
-def device_epoch_batches(images, batch_size, epoch_seed, n_batches=None):
+def device_epoch_batches(images, batch_size, epoch_seed, n_batches=None,
+                         rows=None):
     """epoch_batches (remainder dropped) over a tensor that lives on the
     device: the permutation is copied over once, and each batch is a
     gather on the device, so the loop never waits on a host-to-device
-    copy. ``n_batches`` stops early."""
+    copy. ``n_batches`` stops early. ``rows`` (a slice of the batch, a
+    data-parallel rank's) gathers only those rows of each batch."""
     import torch
 
     n = images.shape[0]
@@ -254,4 +256,5 @@ def device_epoch_batches(images, batch_size, epoch_seed, n_batches=None):
     perm = torch.as_tensor(epoch_permutation(n, epoch_seed)).to(
         images.device)
     for i in range(count):
-        yield images[perm[i * batch_size:(i + 1) * batch_size]]
+        idx = perm[i * batch_size:(i + 1) * batch_size]
+        yield images[idx if rows is None else idx[rows]]

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ladder_tpu_torch.ops.norm_chain import fused_instnorm_style_lrelu
+from ladder_tpu_torch.parallel.mesh import all_reduce_sum, sharded
 
 
 def leaky_relu(x):
@@ -124,12 +125,16 @@ class BatchNormTrain(nn.Module):
     """Batch normalisation with batch statistics (tf.layers.batch_normalization
     (training=True), epsilon 1e-3), statistics in fp32. frozen=True
     (serving only) normalises with fixed population statistics set by
-    ``set_stats`` instead."""
+    ``set_stats`` instead. With a data mesh set (``set_batchnorm_mesh``)
+    and sharded, the statistics are those of the global batch, in float32,
+    as ``ladder_tpu``'s under GSPMD: the channel sums are all-reduced, the
+    mean first, then the centred squares, inside the autograd graph."""
 
     def __init__(self, channels, epsilon=1e-3, frozen=False):
         super().__init__()
         self.epsilon = epsilon
         self.frozen = frozen
+        self.mesh = None
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels), persistent=False)
@@ -142,8 +147,15 @@ class BatchNormTrain(nn.Module):
 
     def forward(self, x):
         xf = x.float()
+        mesh = sharded(self.mesh)
         if self.frozen:
             mean, var = self.mean, self.var
+        elif mesh is not None:
+            count = xf.numel() // xf.shape[1] * mesh.world
+            mean = all_reduce_sum(xf.sum(dim=(0, 2, 3)), mesh) / count
+            var = all_reduce_sum(
+                (xf - mean[None, :, None, None]).square().sum(dim=(0, 2, 3)),
+                mesh) / count
         else:
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
@@ -151,6 +163,14 @@ class BatchNormTrain(nn.Module):
         y = (xf - mean[None, :, None, None]) * inv[None, :, None, None]
         y = y * self.gamma[None, :, None, None] + self.beta[None, :, None, None]
         return y.to(x.dtype)
+
+
+def set_batchnorm_mesh(module, mesh):
+    """Give every BatchNormTrain under ``module`` the data mesh (None: local
+    statistics)."""
+    for m in module.modules():
+        if isinstance(m, BatchNormTrain):
+            m.mesh = mesh
 
 
 def init_parameters(module, generator):

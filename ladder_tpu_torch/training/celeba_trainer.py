@@ -23,8 +23,8 @@ from ladder_tpu_torch.utils import plotting
 
 
 class CelebATrainer(JointTrainer):
-    def __init__(self, model, data, config, device="cuda"):
-        super().__init__(model, data, config, device)
+    def __init__(self, model, data, config, device="cuda", mesh=None):
+        super().__init__(model, data, config, device, mesh)
         self._test_batch = self.data.test.first_batch(config["batch_size"])
         n_iter = self.n_train_iter()
         step = max(n_iter // max(config["num_iter_to_plot"], 1), 1)
@@ -33,16 +33,22 @@ class CelebATrainer(JointTrainer):
     def current_lr_ae(self):
         return schedules.lr_ae_celeba(self.config, self.cur_epoch)
 
+    def _rows(self):
+        """This rank's rows of every batch (all of them without a mesh):
+        each rank reads only its own records."""
+        bs = self.config["batch_size"]
+        return self.mesh.rows(bs) if self.mesh is not None else None
+
     def train_batches(self):
         # the read and the host-to-device copy of batch k+1 overlap step k
         return self.data.train.epoch(self.config["batch_size"],
                                      seed=self.cur_epoch,
-                                     to_device=self.device)
+                                     to_device=self.device, rows=self._rows())
 
     def val_batches(self):
         return self.data.val.epoch(self.config["batch_size"],
                                    seed=self.cur_epoch,
-                                   to_device=self.device)
+                                   to_device=self.device, rows=self._rows())
 
     def sample_batches(self, n_samples):
         bs = self.config["batch_size"]
@@ -50,7 +56,7 @@ class CelebATrainer(JointTrainer):
         # prefetch=False: this iterator is abandoned after n_batch batches
         # of a full epoch; a prefetch thread would read ahead for nothing
         gen = self.data.train.epoch(bs, seed=self.cur_epoch * 7919 + 1,
-                                    prefetch=False)
+                                    prefetch=False, rows=self._rows())
         for i, b in enumerate(gen):
             if i >= n_batch:
                 return
@@ -94,6 +100,8 @@ class CelebATrainer(JointTrainer):
         if hits.size == 0:
             return
         self.test_step(self._test_batch, print_result=False)
+        if not self.is_lead:
+            return
         for h in hits:
             plotting.plot_interleaved_recon(
                 np.asarray(self._test_batch, dtype=np.float32) / 255.0,

@@ -37,11 +37,24 @@ from ladder_tpu_torch.ops.distributions import (
     gmm_logpdf,
 )
 from ladder_tpu_torch.ops.output_stage import fused_output_recon
+from ladder_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    randn_rows,
+    shard_batch,
+    sharded,
+)
 
 
-def draw_noise(config, batch_size, generator, device):
-    """The standard-normal draws of one compute_loss call, float32 on
-    ``device``, drawn in the order eps_z, eps_t, eps_mc."""
+# the batch axis of each draw
+NOISE_BATCH_AXIS = {"eps_z": 0, "eps_t": 0, "eps_mc": 1}
+
+
+def draw_noise(config, batch_size, generator, device, mesh=None):
+    """The standard-normal draws of one compute_loss call over
+    ``batch_size`` rows, float32 on ``device``, drawn in the order eps_z,
+    eps_t, eps_mc. On a sharded data mesh ``batch_size`` is this rank's:
+    the global batch's draws are taken and this rank's rows kept
+    (parallel/mesh.py:randn_rows)."""
     prior = config["prior"]
     code, rep = config["code_size"], config["representation_size"]
     shapes = {"eps_z": (batch_size, code)}
@@ -50,19 +63,34 @@ def draw_noise(config, batch_size, generator, device):
     if prior in ("ours", "GMM", "vampPrior"):
         shapes["eps_mc"] = (config["n_MC_samples"], batch_size,
                             rep if prior == "ours" else code)
-    return {name: torch.randn(shape, generator=generator,
-                              device=generator.device,
-                              dtype=torch.float32).to(device)
+    return {name: randn_rows(generator, shape, mesh,
+                             axis=NOISE_BATCH_AXIS[name], device=device)
             for name, shape in shapes.items()}
 
 
-def compute_loss(model, x, generator=None, gm=None, flags=None, noise=None):
+def local_noise(noise, mesh):
+    """This rank's rows of one compute_loss call's global draws (the
+    draws themselves without a sharded mesh)."""
+    if sharded(mesh) is None:
+        return noise
+    return {name: shard_batch(eps, mesh, axis=NOISE_BATCH_AXIS[name])
+            for name, eps in noise.items()}
+
+
+def compute_loss(model, x, generator=None, gm=None, flags=None, noise=None,
+                 mesh=None):
     """Full ELBO and metric set for one batch.
 
     x: images [B,C,H,W], float in [0,1] or uint8 (normalised here).
     gm: dict(weights [K], means [K,D], chols [K,D,D]), the fitted GM
         hyper-prior; required for 'ours'/'GMM', ignored otherwise.
     flags: dict(use_sg_prior, use_mask), bools or 0-dim bool tensors.
+    mesh: a data mesh (parallel/mesh.py); when sharded, x holds this
+        rank's rows of the global batch, ``noise`` this rank's rows of its
+        draws, and the mean pixel error behind the sigma floor is the
+        global batch's (the L1 sum all-reduced inside the graph). Every
+        other term stays this rank's batch mean: their average over the
+        ranks is the global batch's.
     Returns (loss_ae, metrics); metrics also holds loss_prior where the
     prior has one. The values stay attached to the autograd graph."""
     cfg = model.config
@@ -77,7 +105,8 @@ def compute_loss(model, x, generator=None, gm=None, flags=None, noise=None):
     if noise is None:
         if generator is None:
             raise ValueError("compute_loss needs a generator or noise")
-        noise = draw_noise(cfg, x.shape[0], generator, x.device)
+        noise = draw_noise(cfg, x.shape[0], generator, x.device, mesh)
+    world = sharded(mesh).world if sharded(mesh) is not None else 1
 
     def sample(name, mean, std, leading=()):
         shape = tuple(leading) + tuple(mean.shape)
@@ -206,13 +235,17 @@ def compute_loss(model, x, generator=None, gm=None, flags=None, noise=None):
         # batch and per element here
         metrics["l2_reconstruction_error"] = l2_sum / bsz
         l1 = l1_sum / bsz
-        mean_pixel_error = l1_sum / x.numel()
+        mean_pixel_error = all_reduce_sum(l1_sum, mesh) / (x.numel() * world)
     else:
         diff = x - decoded
         metrics["l2_reconstruction_error"] = diff.square().sum(
             dim=(1, 2, 3)).mean()
         l1 = diff.abs().sum(dim=(1, 2, 3)).mean()
-        mean_pixel_error = diff.abs().mean()
+        if world > 1:
+            mean_pixel_error = (all_reduce_sum(diff.abs().sum(), mesh)
+                                / (x.numel() * world))
+        else:
+            mean_pixel_error = diff.abs().mean()
     metrics["l1_reconstruction_error"] = l1
     metrics["mean_pixel_error"] = mean_pixel_error
     sigma = model.sigma_value()

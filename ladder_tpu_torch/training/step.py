@@ -24,7 +24,15 @@ caller (a CUDA generator on the card keeps the draws on the device), each
 compute_loss call taking its draws in turn. ``ladder_tpu`` derives a
 per-step stream with ``fold_in(rng, step)``; the two streams cannot be
 matched and are not. Tests pass ``noise``: a list with one dict of draws
-(losses.draw_noise) per compute_loss call, in order.
+(losses.draw_noise) per compute_loss call, in order, each over the global
+batch.
+
+Data parallelism (``mesh``, parallel/mesh.py): each rank is given its rows
+of the global batch and keeps its rows of every draw; each backward's
+gradients are averaged across the ranks in one flat buffer before the
+clip and the Adam kernel, so every rank applies the same update; the
+returned metrics are averaged across the ranks, so they are the global
+batch's. In mode 1 every sub-step has its own gradient all-reduce.
 
 In float32 mode the step runs with TF32 off for convolutions and matmuls,
 as the serving engine does. ``jax.jit``, buffer donation and ``lax.scan``
@@ -44,8 +52,12 @@ from ladder_tpu_torch.models.builder import (
     PRIORS_WITH_INNER_VAE,
     PRIORS_WITH_PRIOR_MODEL,
 )
-from ladder_tpu_torch.ops.distributions import sample_diag_gaussian
-from ladder_tpu_torch.training.losses import compute_loss, draw_noise
+from ladder_tpu_torch.parallel.mesh import randn_rows, sharded
+from ladder_tpu_torch.training.losses import (
+    compute_loss,
+    draw_noise,
+    local_noise,
+)
 from ladder_tpu_torch.training.optim import adam_init, adam_update
 from ladder_tpu_torch.utils.device import float32_exact, resolve_device
 from ladder_tpu_torch.utils.weights import (
@@ -156,8 +168,8 @@ class _NoiseFeed:
     """One dict of draws per compute_loss call: from the caller's list, in
     order, or from the generator."""
 
-    def __init__(self, model, generator, noise):
-        self.model, self.generator = model, generator
+    def __init__(self, model, generator, noise, mesh=None):
+        self.model, self.generator, self.mesh = model, generator, mesh
         self.queue = None if noise is None else list(noise)
 
     def next(self, x):
@@ -165,18 +177,27 @@ class _NoiseFeed:
             if not self.queue:
                 raise ValueError("the noise list is shorter than the "
                                  "step's compute_loss calls")
-            return self.queue.pop(0)
+            return local_noise(self.queue.pop(0), self.mesh)
         return draw_noise(self.model.config, x.shape[0], self.generator,
-                          x.device)
+                          x.device, self.mesh)
 
 
-def _gradients(loss, params):
+def _gradients(loss, params, mesh=None):
     """{name: gradient} of ``loss``; a parameter the loss does not reach
-    gets zeros, so its moments decay as they do in ``ladder_tpu``."""
+    gets zeros, so its moments decay as they do in ``ladder_tpu``. On a
+    sharded mesh the gradients are averaged across the ranks (one flat
+    buffer, in the parameters' dtype)."""
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
-    return {k: torch.zeros_like(p) if g is None else g
-            for (k, p), g in zip(params.items(), grads)}
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(params.items(), grads)}
+    if sharded(mesh) is not None:
+        mesh.average_(grads.values())
+    return grads
+
+
+def _global_metrics(out, mesh):
+    return mesh.average_metrics(out) if sharded(mesh) is not None else out
 
 
 def _apply_update(cfg, grads, opt_state, params, lr):
@@ -184,9 +205,10 @@ def _apply_update(cfg, grads, opt_state, params, lr):
                 skip_nonfinite=bool(cfg.get("skip_nonfinite_updates", 0)))
 
 
-def make_train_step(model):
+def make_train_step(model, mesh=None):
     """Build train_step(state, batch, generator, gm, flags, lrs, do_prior,
-    sg_overlap=False, noise=None) -> (state, out).
+    sg_overlap=False, noise=None) -> (state, out); with a data mesh, the
+    step of one rank of it (see the module docstring).
 
     config['fused_train_step'] selects the update semantics:
       1 (default): sequential sub-steps. Group k+1 sees the parameters
@@ -203,7 +225,7 @@ def make_train_step(model):
         if cfg["TRAIN_decoded_z_std"] == 1:
             raise ValueError("fused_train_step=2 is incompatible with "
                              "TRAIN_decoded_z_std=1; use mode 1")
-        return _make_single_pass_step(model)
+        return _make_single_pass_step(model, mesh)
     groups = group_keys(cfg)
 
     def train_step(state, batch, generator, gm, flags, lrs, do_prior,
@@ -214,14 +236,14 @@ def make_train_step(model):
         model = state["model"]
         opt = state["opt"]
         x = _images(batch, next(model.parameters()).device)
-        feed = _NoiseFeed(model, generator, noise)
+        feed = _NoiseFeed(model, generator, noise, mesh)
         out = {}
 
         def grad_step(name, lr, select):
             params = group_params(model, groups[name])
             loss_ae, metrics = compute_loss(model, x, gm=gm, flags=flags,
-                                            noise=feed.next(x))
-            grads = _gradients(select(loss_ae, metrics), params)
+                                            noise=feed.next(x), mesh=mesh)
+            grads = _gradients(select(loss_ae, metrics), params, mesh)
             _apply_update(cfg, grads, opt[name], params, lr)
             return metrics
 
@@ -249,12 +271,12 @@ def make_train_step(model):
                               lambda L, met: met["decoded_z_std_loss"])
 
         state["step"] += 1
-        return state, out
+        return state, _global_metrics(out, mesh)
 
     return train_step
 
 
-def _make_single_pass_step(model):
+def _make_single_pass_step(model, mesh=None):
     """One forward and backward for all optimiser groups (see
     make_train_step)."""
     cfg = model.config
@@ -283,7 +305,7 @@ def _make_single_pass_step(model):
         model = state["model"]
         opt = state["opt"]
         x = _images(batch, next(model.parameters()).device)
-        draws = _NoiseFeed(model, generator, noise).next(x)
+        draws = _NoiseFeed(model, generator, noise, mesh).next(x)
         names = active_groups(do_prior)
         prior_names = [n for n in names if n in ("prior", "inner_sigma")]
         main_names = names
@@ -294,8 +316,8 @@ def _make_single_pass_step(model):
             params = {n: group_params(model, groups[n]) for n in group_names}
             merged = {k: p for ps in params.values() for k, p in ps.items()}
             loss_ae, metrics = compute_loss(model, x, gm=gm, flags=flags,
-                                            noise=draws)
-            grads = _gradients(select(loss_ae, metrics), merged)
+                                            noise=draws, mesh=mesh)
+            grads = _gradients(select(loss_ae, metrics), merged, mesh)
             return params, grads, metrics
 
         with _exact(model):
@@ -320,16 +342,17 @@ def _make_single_pass_step(model):
         if "prior" in names:
             out["prior"] = small
         state["step"] += 1
-        return state, out
+        return state, _global_metrics(out, mesh)
 
     return train_step
 
 
-def make_train_multi_step(model):
-    """K train steps in one call over a [K, B, ...] batch stack: a plain
+def make_train_multi_step(model, mesh=None):
+    """K train steps in one call over a [K, B, ...] batch stack (with a
+    mesh, this rank's rows: parallel/mesh.py:place_global_stack): a plain
     loop with the single step's semantics. The returned metrics carry a
     leading K axis."""
-    inner = make_train_step(model)
+    inner = make_train_step(model, mesh)
 
     def multi_step(state, batches, generator, gm, flags, lrs, do_prior,
                    sg_overlap=False, noise=None):
@@ -347,24 +370,30 @@ def make_train_multi_step(model):
     return multi_step
 
 
-def make_eval_step(model):
+def make_eval_step(model, mesh=None):
     """eval_step(batch, generator, gm, flags, noise=None): the small metrics
-    without gradients or updates."""
+    without gradients or updates (on a sharded mesh: of the global batch
+    whose rows ``batch`` holds, averaged across the ranks)."""
 
     def eval_step(batch, generator, gm, flags, noise=None):
         x = _images(batch, next(model.parameters()).device)
+        if noise is not None:
+            noise = local_noise(noise, mesh)
         with torch.no_grad(), _exact(model):
-            _, metrics = compute_loss(model, x, generator, gm, flags, noise)
-        return _small(metrics)
+            _, metrics = compute_loss(model, x, generator, gm, flags, noise,
+                                      mesh=mesh)
+        return _global_metrics(_small(metrics), mesh)
 
     return eval_step
 
 
-def make_forward_fns(model):
+def make_forward_fns(model, mesh=None):
     """Gradient-free inference helpers for trainers and demos. Image inputs
     are [B,H,W,C], uint8 or float, and are normalised as compute_loss
     normalises them; outputs are tensors on the model's device, decoded
-    images [B,H,W,C]."""
+    images [B,H,W,C]. On a sharded mesh the inputs are this rank's rows of
+    a global batch, and the samplers keep this rank's rows of the global
+    batch's draws."""
 
     def _norm(x):
         x = _images(x, next(model.parameters()).device)
@@ -376,8 +405,13 @@ def make_forward_fns(model):
                 return fn(*args)
         return wrapped
 
+    def sample(generator, mean, std):
+        # ops/distributions.py:sample_diag_gaussian's draw without a mesh
+        eps = randn_rows(generator, mean.shape, mesh)
+        return mean + std * eps.to(device=mean.device, dtype=mean.dtype)
+
     def encode_sample(x, generator):
-        return sample_diag_gaussian(generator, *model.encode(_norm(x)))
+        return sample(generator, *model.encode(_norm(x)))
 
     fns = dict(encode=_run(lambda x: model.encode(_norm(x))),
                decode=_run(lambda z: model.decode(z).permute(0, 2, 3, 1)),
@@ -386,7 +420,7 @@ def make_forward_fns(model):
     if model.config["prior"] in PRIORS_WITH_INNER_VAE:
         def representation_sample(x, generator):
             z = encode_sample(x, generator)
-            return sample_diag_gaussian(generator, *model.inner_encode(z))
+            return sample(generator, *model.inner_encode(z))
 
         fns.update(inner_encode=_run(model.inner_encode),
                    inner_decode=_run(lambda t: model.inner_decode(t)[0]),

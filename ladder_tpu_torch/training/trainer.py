@@ -46,14 +46,27 @@ What differs and why, each named where it lives:
     plots them. With plots off, test_step decodes no reconstruction of
     the test batch (``ladder_tpu``'s output_test, trainer.py:686-690, which
     only the plots read), so the device runs what it did before plots.
+  * data parallelism (``mesh``, a parallel/mesh.py DataMesh, from
+    ``LADDER_DISTRIBUTED=1 torchrun ... -m ladder_tpu_torch.train``): each
+    rank trains on its rows of every global batch (the sources yield only
+    those rows; the test batch is sliced by ``_place_rows``), and the
+    step, the evaluation and the GM samples reduce or gather across the
+    ranks (training/step.py), so the curves are one process's. The lead
+    (rank 0) writes every file; every rank enters every collective. The
+    forwards whose output only the lead writes (the plots' decodes, the
+    prior samples) run whole on every rank with the sharding off
+    (``DataMesh.whole_batch``): the same draws, no collective. The GM is
+    fitted on every rank on the gathered samples, then rank 0's fit is
+    broadcast; an init or a restore is broadcast from rank 0; a
+    preemption signal on any rank stops all of them after the epoch.
   * not ported, and refused at construction rather than skipped: the
-    sklearn GM backend, a device mesh of more than one device.
+    sklearn GM backend and the 2-D tensor-parallel mesh_shape.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
-import math
 import os
 import signal
 import time
@@ -67,6 +80,7 @@ from ladder_tpu_torch.models.builder import (
     PRIORS_WITH_INNER_VAE,
     PRIORS_WITH_PRIOR_MODEL,
 )
+from ladder_tpu_torch.models.layers import set_batchnorm_mesh
 from ladder_tpu_torch.ops.distributions import gmm_cholesky, sample_gmm
 from ladder_tpu_torch.ops.gmm import (
     ACTIVE_WEIGHT_THRESHOLD,
@@ -74,6 +88,12 @@ from ladder_tpu_torch.ops.gmm import (
     fit_bgmm_restarts,
     fit_em,
     responsibilities,
+)
+from ladder_tpu_torch.parallel.mesh import (
+    check_mesh_shape,
+    copy_stats,
+    shard_batch,
+    stats_delta,
 )
 from ladder_tpu_torch.training import schedules
 from ladder_tpu_torch.training.losses import identity_gm
@@ -132,17 +152,15 @@ def _to_host(tree):
     return rebuild(host)
 
 
-def _refuse_unported(config):
+def _refuse_unported(config, world):
     if config.get("gmm_backend", "jax") == "sklearn":
         raise NotImplementedError(
             "gmm_backend='sklearn' is not ported (the port does not depend "
             "on scikit-learn); it fits the GM on the device "
             "(gmm_backend 'jax')")
-    shape = config.get("mesh_shape")
-    if shape and math.prod(int(n) for n in shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={list(shape)}: the port trains on one device; "
-            "data and tensor parallelism are not ported yet (ROADMAP.md)")
+    # [N] trains over the ranks started (one process: the one device, as
+    # ladder_tpu's train.py does); 2-D meshes are not ported
+    check_mesh_shape(config.get("mesh_shape"), world)
 
 
 class JointTrainer:
@@ -150,8 +168,10 @@ class JointTrainer:
     ([B,H,W,C] tensors on the device, or host arrays that ``_place`` moves
     there)."""
 
-    def __init__(self, model, data, config, device="cuda"):
-        _refuse_unported(config)
+    def __init__(self, model, data, config, device="cuda", mesh=None):
+        _refuse_unported(config, mesh.world if mesh is not None else 1)
+        self.mesh = mesh
+        self.is_lead = mesh is None or mesh.is_lead
         self.model = model
         self.data = data
         self.config = config
@@ -164,12 +184,13 @@ class JointTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(config.get("seed", 0)))
         self.state = init_state(model, device=self.device)
-        self.ckpt = CheckpointManager(config)
+        set_batchnorm_mesh(model, mesh)
+        self.ckpt = CheckpointManager(config, is_lead=self.is_lead)
         self.metrics = MetricsRecorder()
 
-        self.train_step = make_train_step(model)
-        self.eval_step = make_eval_step(model)
-        self.fwd = make_forward_fns(model)
+        self.train_step = make_train_step(model, mesh)
+        self.eval_step = make_eval_step(model, mesh)
+        self.fwd = make_forward_fns(model, mesh)
         # config['steps_per_call'] is accepted and changes nothing: in
         # ladder_tpu it fuses K steps under lax.scan, and the port has no
         # such fusion (its make_train_multi_step is a loop over the single
@@ -183,6 +204,7 @@ class JointTrainer:
         # per epoch: the step timer's summary, each GM fit's seconds and
         # iterations, the validation loop's seconds
         self.timings = []
+        self._replicate()
 
         self.num_para_list = model.count_params()
         print("Total number of trainable parameters in VAE network is:\n"
@@ -221,11 +243,35 @@ class JointTrainer:
     # ---- epoch-state helpers -----------------------------------------
     def _place(self, batch):
         """A batch on the trainer's device: a tensor already there passes
-        through, a host array is copied (``ladder_tpu``'s _place,
-        trainer.py:141, without a mesh)."""
+        through, a host array is copied."""
         if not torch.is_tensor(batch):
             batch = torch.as_tensor(np.asarray(batch))
         return batch.to(self.device)
+
+    def _place_rows(self, batch):
+        """A global batch -> this rank's rows on the device (``ladder_tpu``'s
+        _place, trainer.py:141, place_global_batch under a mesh): raises
+        on a batch that does not divide across the ranks."""
+        return self._place(shard_batch(batch, self.mesh))
+
+    def _whole(self):
+        """Sharding off for a block: every rank runs whole batches."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return self.mesh.whole_batch()
+
+    def _replicate(self):
+        """Rank 0's parameters, moments and fitted GMs on every rank,
+        bitwise (after an init or a restore)."""
+        if self.mesh is None:
+            return
+        tensors = list(self.state["model"].parameters())
+        for group in self.state["opt"].values():
+            tensors += list(group["m"].values()) + list(group["v"].values())
+        for gm in (self.gm_fast, self.gm_final):
+            if gm is not None:
+                tensors += list(gm)
+        self.mesh.replicate_(tensors)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -299,15 +345,20 @@ class JointTrainer:
             for _ in range(max(0,
                                self.config["num_epochs"] - self.cur_epoch)):
                 self.train_epoch()
-                params = self.model.flax_params()
-                if self.prior in PRIORS_WITH_PRIOR_MODEL:
-                    self.ckpt.save(params, model="joint")
-                else:
-                    self.ckpt.save(params, model="VAE")
-                self.save_full_state()
+                if self.is_lead:
+                    params = self.model.flax_params()
+                    if self.prior in PRIORS_WITH_PRIOR_MODEL:
+                        self.ckpt.save(params, model="joint")
+                    else:
+                        self.ckpt.save(params, model="VAE")
+                    self.save_full_state()
+                self._barrier()
                 self.compute_execution_time(self.cur_epoch - 1,
                                             self.config["num_epochs"])
-                if self._stop_requested:
+                stop = self._stop_requested
+                if self.mesh is not None:
+                    stop = self.mesh.any(stop)  # no rank stops alone
+                if stop:
                     print(f"Preemption save complete at epoch "
                           f"{self.cur_epoch}/{self.config['num_epochs']}; "
                           f"rerun the same command to resume.")
@@ -316,16 +367,24 @@ class JointTrainer:
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler)
             self.ckpt.flush()
+        self._barrier()  # the files are on disk before any rank goes on
 
-    def _run_steps(self, timer, gm, flags, lrs, do_prior, sg_ov, sync_each):
+    def _barrier(self):
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _run_steps(self, timer, gm, flags, lrs, do_prior, sg_ov, sync_each,
+                   prof=None):
         """The epoch's train steps; returns each step's metrics, still on
-        the device."""
+        the device. ``prof``: the epoch's trace, which marks each step."""
         outs = []
         for batch in self.train_batches():
             timer.start()
-            self.state, out = self.train_step(
-                self.state, self._place(batch), self.generator, gm, flags,
-                lrs, do_prior, sg_overlap=sg_ov)
+            with (prof.step_range(len(outs)) if prof is not None
+                  else contextlib.nullcontext()):
+                self.state, out = self.train_step(
+                    self.state, self._place(batch), self.generator, gm,
+                    flags, lrs, do_prior, sg_overlap=sg_ov)
             timer.stop(sync_on=out if sync_each else None)
             outs.append(out)
             self.mid_epoch_hook(len(outs) - 1)
@@ -344,15 +403,24 @@ class JointTrainer:
         do_prior = self._do_prior()
         timer = StepTimer(batch_size=cfg["batch_size"])
         profile_dir = cfg.get("profile_dir") if self.cur_epoch == 1 else None
+        if profile_dir and self.mesh is not None:
+            profile_dir = os.path.join(profile_dir, f"rank{self.mesh.rank}")
+        collectives = copy_stats(self.mesh) if self.mesh is not None else None
         # sync_each_step=1 times every step on the device's clock
         sync_each = bool(cfg.get("sync_each_step", 0))
         sg_ov = do_prior and self.cur_epoch <= cfg["sg_pretraining"]
         timer.wall_start()
-        with trace(profile_dir):
+        with trace(profile_dir) as prof:
             outs = self._run_steps(timer, gm, flags, lrs, do_prior, sg_ov,
-                                   sync_each)
+                                   sync_each, prof)
             self._sync()
         timer.wall_stop()
+        if prof is not None:
+            record["profile"] = prof.summary
+        if collectives is not None:
+            # the step loop's collectives (count, bytes, host seconds)
+            record["collectives"] = stats_delta(copy_stats(self.mesh),
+                                                collectives)
         self._timer_summary = record["train"] = timer.report(
             prefix=f"epoch {self.cur_epoch}: ")
 
@@ -410,6 +478,8 @@ class JointTrainer:
                       self.metrics.val_loss_ave_epoch[-1]
                       if self.metrics.val_loss_ave_epoch else float("nan")))
         self.epoch_tail_plots()
+        if not self.is_lead:
+            return
 
         self.metrics.save(cfg, self.num_para_list, self.n_train_iter(),
                           self.n_val_iter())
@@ -445,11 +515,17 @@ class JointTrainer:
     # ---- GM fitting (base.py:681-789, 988-1010) ----------------------
     def _collect_samples(self, n_target, space):
         """Encode ~n_target train samples into t or z space on the
-        device."""
+        device. Under a mesh each rank encodes its rows and every batch is
+        gathered, so all ranks hold one process's samples in its order."""
         fn = self.fwd["representation_sample" if space == "t"
                       else "encode_sample"]
-        samples = torch.cat([fn(self._place(batch), self.generator)
-                             for batch in self.sample_batches(n_target)])
+        parts = []
+        for batch in self.sample_batches(n_target):
+            part = fn(self._place(batch), self.generator)
+            if self.mesh is not None:
+                part = self.mesh.all_gather_rows(part)
+            parts.append(part)
+        samples = torch.cat(parts)
         # the fit runs in float32 and so do the heads, bf16 mode included
         # (see the module docstring): a sample of another type is a
         # departure from ladder_tpu's policy, not something to cast away
@@ -507,13 +583,18 @@ class JointTrainer:
                     fit = fit_em(self.generator, samples, cfg["n_mixtures"],
                                  max_iter=2000)
                 self.gm_final = (fit.weights, fit.means, fit.covariances)
+        if self.mesh is not None:
+            # the ranks fitted the same samples with the same draws; rank
+            # 0's fit is broadcast all the same, so they cannot drift
+            self.mesh.replicate_(self.gm_fast if mode == "fast"
+                                 else self.gm_final)
         self._sync()
         self.timings[-1]["gm"].append(dict(
             mode=mode, samples=int(samples.shape[0]), n_iter=fit.n_iter,
             converged=fit.converged, seconds=time.perf_counter() - t0))
         which = self.gm_fast if mode == "fast" else self.gm_final
         which_host = _to_host(which)
-        if mode == "accurate":
+        if mode == "accurate" and self.is_lead:
             # the reference's order: npz save -> active report -> final print
             save_gm_prior_info(cfg["result_dir"], *which_host)
         self._report_active(which_host[0])
@@ -549,6 +630,8 @@ class JointTrainer:
                 self._plot_gm(samples, gm, mode)
 
     def _plot_gm(self, samples, gm, mode):
+        if not self.is_lead:
+            return
         samples, (w, m, K) = _to_host((samples, gm))
         for style in ("circle", "density"):
             plotting.plot_prior_distribution(
@@ -605,7 +688,8 @@ class JointTrainer:
         """The device half of generate_samples_from_prior: n_sample**2
         codes of the epoch's prior and fit (trainer.py:649-663), decoded in
         one call. Returns (images [n_sample**2, H, W, C] on the host, the
-        PDF's filename)."""
+        PDF's filename). Under a mesh every rank draws and decodes all
+        the codes (no collective; the generators stay in step)."""
         cfg = self.config
         mode, method = "crude-GM", None
         if self.prior == "ours":
@@ -617,9 +701,10 @@ class JointTrainer:
         elif self.prior == "GMM":
             if self.cur_epoch >= cfg["num_epochs"]:
                 mode = "accurate-GM"
-        codes = self.sample_codes_from_prior(n_sample ** 2, mode=mode,
-                                             method=method)
-        images = self.fwd["decode"](codes).cpu().numpy()
+        with self._whole():
+            codes = self.sample_codes_from_prior(n_sample ** 2, mode=mode,
+                                                 method=method)
+            images = self.fwd["decode"](codes).cpu().numpy()
         if (method or self.prior) in ("GMM", "ours"):
             name = f"generated_samples_prior_{self.cur_epoch}_{mode}.pdf"
         else:
@@ -628,19 +713,23 @@ class JointTrainer:
 
     def generate_samples_from_prior(self, n_sample=10):
         images, filename = self.prior_samples(n_sample)
-        plotting.plot_generated_samples(images, filename, n_sample,
-                                        prior=self.prior)
+        if self.is_lead:
+            plotting.plot_generated_samples(images, filename, n_sample,
+                                            prior=self.prior)
 
     # ---- test / diagnostics (base.py:944-986) ------------------------
     def test_step(self, batch, print_result=False):
-        x = self._place(batch)
-        m = _to_host(self.eval_step(x, self.generator, self._gm_for_step(),
-                                    self._flags()))
+        """The fixed test batch's diagnostics; under a mesh each rank runs
+        its rows and the metrics are averaged across the ranks."""
+        m = _to_host(self.eval_step(self._place_rows(batch), self.generator,
+                                    self._gm_for_step(), self._flags()))
         if self.plots_enabled:
             # the reconstruction the plots show: a fresh posterior sample,
-            # decoded (trainer.py:684-689)
-            z = self.fwd["encode_sample"](x, self.generator)
-            self.output_test = self.fwd["decode"](z).cpu().numpy()
+            # decoded (trainer.py:684-689); whole on every rank
+            with self._whole():
+                z = self.fwd["encode_sample"](self._place(batch),
+                                              self.generator)
+                self.output_test = self.fwd["decode"](z).cpu().numpy()
         if print_result:
             print("test loss: elbo: {:.4f}, recons_loss_l1: {:.4f}, "
                   "entropy z: {:.4f}, cross entropy z: {:.4f}, "
@@ -664,7 +753,8 @@ class JointTrainer:
 
     # ---- bookkeeping --------------------------------------------------
     def _write_scalar_summary(self):
-        """One JSON line of epoch scalars in summary_dir/scalars.jsonl."""
+        """One JSON line of epoch scalars in summary_dir/scalars.jsonl (the
+        lead's)."""
         sdir = self.config.get("summary_dir")
         if not sdir:
             return
@@ -729,7 +819,7 @@ class JointTrainer:
 
     def restore(self):
         """The reference's startup restore of the two groups, or a
-        full-state resume when 'train-state' exists."""
+        full-state resume when 'train-state' exists; on every rank."""
         full = self.ckpt.load_full()
         if full is not None:
             state, extra = full
@@ -748,20 +838,22 @@ class JointTrainer:
                         arr.tolist() if arr.ndim <= 1 else list(arr))
             print("Full train state restored (epoch {}).".format(
                 self.cur_epoch))
-            return
-        params = self.ckpt.load(self.model.flax_params(), model="VAE")
-        if self.prior in PRIORS_WITH_PRIOR_MODEL:
-            params = self.ckpt.load(params, model="prior")
-        self.model.load_flax_params(params)
+        else:
+            params = self.ckpt.load(self.model.flax_params(), model="VAE")
+            if self.prior in PRIORS_WITH_PRIOR_MODEL:
+                params = self.ckpt.load(params, model="prior")
+            self.model.load_flax_params(params)
+        # every rank read the same files; rank 0's values all the same
+        self._replicate()
 
 
 class MNISTTrainer(JointTrainer):
     """trainers.py:12-127 (MNISTTrainer_joint_training). The images are
     copied to the device once; every batch is a gather there."""
 
-    def __init__(self, model, data, config, device="cuda"):
-        super().__init__(model, data, config, device)
-        if self.plots_enabled:
+    def __init__(self, model, data, config, device="cuda", mesh=None):
+        super().__init__(model, data, config, device, mesh)
+        if self.plots_enabled and self.is_lead:
             plotting.plot_ground_truth_test_set(
                 data.test_set["image"], config["result_dir"],
                 config["batch_size"])
@@ -770,9 +862,10 @@ class MNISTTrainer(JointTrainer):
             for name in ("train_set", "val_set", "test_set")}
 
     def _batches(self, name, seed, n_batches=None):
-        return device_epoch_batches(self._images[name],
-                                    self.config["batch_size"], seed,
-                                    n_batches)
+        bs = self.config["batch_size"]
+        rows = self.mesh.rows(bs) if self.mesh is not None else None
+        return device_epoch_batches(self._images[name], bs, seed, n_batches,
+                                    rows=rows)
 
     def train_batches(self):
         return self._batches("train_set", self.cur_epoch)
@@ -794,7 +887,8 @@ class MNISTTrainer(JointTrainer):
         return self.data.n_val // self.config["batch_size"]
 
     def epoch_tail_plots(self):
-        if self.plots_enabled and self.output_test is not None:
+        if (self.plots_enabled and self.is_lead
+                and self.output_test is not None):
             plotting.plot_reconstructed_data(
                 self.output_test, self.config["result_dir"], self.cur_epoch,
                 title_attribs=None, narrow_space=True)

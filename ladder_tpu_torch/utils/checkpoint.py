@@ -24,7 +24,9 @@ GMs, metric buffers and random state). With config['async_checkpoint']
 = 1 the serialisation and the disk writes run in one background thread
 (``AsyncCheckpointWriter``), in order; every read through the manager, and
 ``flush()``, waits for them first. The orbax backend is not ported and its
-option raises.
+option raises. Under data parallelism only the lead rank's manager
+(``is_lead``) writes, and only it starts the writer thread; every rank
+reads.
 """
 
 from __future__ import annotations
@@ -370,7 +372,7 @@ class CheckpointManager:
     ``ladder_tpu.utils.checkpoint.CheckpointManager``, on flax-layout trees
     of numpy arrays, written synchronously or by the asynchronous writer."""
 
-    def __init__(self, config):
+    def __init__(self, config, is_lead=True):
         if config.get("checkpoint_backend", "msgpack") != "msgpack":
             raise NotImplementedError(
                 f"checkpoint_backend={config['checkpoint_backend']!r}: only "
@@ -381,17 +383,20 @@ class CheckpointManager:
         self.path_prior = os.path.join(ckdir, "prior-model.msgpack")
         self.path_state = os.path.join(ckdir, "train-state.msgpack")
         self._writer = None
+        self.is_lead = is_lead
 
     def _async_enabled(self):
         """config['async_checkpoint'] = 1 moves serialisation and IO to the
-        background writer (the port runs one process: ``ladder_tpu``'s
-        multi-process exception does not arise)."""
+        background writer (of the lead rank, the only one that writes)."""
         return bool(self.config.get("async_checkpoint"))
 
     def _write_msgpack(self, path, tree, done_msg=None):
         """done_msg, when given, is printed only after the bytes are on
         disk: in async mode inside the writer thread, so the log never
-        claims a write that later fails."""
+        claims a write that later fails. Nothing on a rank other than the
+        lead."""
+        if not self.is_lead:
+            return
         if not self._async_enabled():
             save_msgpack(path, tree)
             if done_msg:

@@ -192,12 +192,21 @@ def create_dirs(dirs):
 
 
 def get_args(argv=None):
-    """The train CLI's arguments: --config, and --device (cuda unless the
-    caller asks for the CPU)."""
+    """The train CLI's arguments: --config; --device (cuda unless the
+    caller asks for the CPU; under LADDER_DISTRIBUTED, cuda:LOCAL_RANK);
+    --backend (the process group's, under LADDER_DISTRIBUTED: nccl on
+    CUDA, gloo on the CPU; gloo on CUDA only when named); --report (a
+    JSON file of this process's run, '{rank}' in the name replaced by its
+    rank)."""
     parser = argparse.ArgumentParser()
     parser.add_argument(
         "-c", "--config", metavar="C", default="None",
         help="The Configuration file")
-    parser.add_argument("--device", default="cuda",
+    parser.add_argument("--device", default=None,
                         help="cuda (default), cuda:N or cpu")
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                        help="process-group backend under "
+                             "LADDER_DISTRIBUTED=1")
+    parser.add_argument("--report", default=None,
+                        help="write this process's run report here (JSON)")
     return parser.parse_args(argv)

@@ -10,13 +10,18 @@ import torch
 
 def resolve_device(device):
     """torch.device for 'cuda' / 'cuda:N' / 'cpu'; raises if CUDA is asked
-    for and absent (never falls back to the CPU)."""
+    for and absent, or cuda:N names no device (never falls back to the
+    CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device={device!r} but CUDA is not available; pass "
                 "device='cpu' to run on the CPU")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device={device!r} but this machine has "
+                f"{torch.cuda.device_count()} CUDA device(s)")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev

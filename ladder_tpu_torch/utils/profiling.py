@@ -10,12 +10,19 @@
   * trace(profile_dir): ``torch.profiler`` around a block, CPU and (when
     there is a card) CUDA activity, written as a Chrome trace into
     profile_dir; a no-op when profile_dir is falsy (config['profile_dir']
-    arms it for the first epoch).
+    arms it for the first epoch). The block marks its steps
+    (``Trace.step_range``), and the trace is summarised over the steps
+    after the first (``Trace.summary``, written beside the trace as
+    summary.json): the window's wall time, the device's busy time (the
+    union of its kernels and copies) and idle share, the device time of
+    the host<->device copies, and the host time of the collectives by
+    name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 
@@ -112,11 +119,75 @@ class StepTimer:
         return s
 
 
+STEP_MARK = "ladder_step#"
+_COLLECTIVE_WORDS = ("all_reduce", "allreduce", "broadcast", "all_gather",
+                     "allgather", "barrier")
+
+
+def _union_us(intervals):
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def summarise(events):
+    """The summary of ``Trace`` from a profile's events, each (name, is
+    device, start us, end us), over the steps after the first."""
+    steps = [(a, b) for name, dev, a, b in events
+             if not dev and name.startswith(STEP_MARK)
+             and name != STEP_MARK + "0"]
+    if not steps:
+        return None
+    lo = min(a for a, _ in steps)
+    hi = max(b for _, b in steps)
+    # the device's kernels and copies (not the device-side spans of the
+    # step marks, which cover each step's work whole)
+    device = [(max(a, lo), b) for name, dev, a, b in events
+              if dev and b > lo and not name.startswith(STEP_MARK)]
+    if device:
+        hi = max(hi, max(b for _, b in device))
+    busy = _union_us(device)
+    copies = sum(b - a for (name, dev, a, b) in events
+                 if dev and b > lo and name.startswith("Memcpy"))
+    coll = {}
+    for name, dev, a, b in events:
+        if (not dev and lo <= a < hi
+                and any(w in name.lower() for w in _COLLECTIVE_WORDS)):
+            c = coll.setdefault(name, [0, 0.0])
+            c[0] += 1
+            c[1] += (b - a) / 1e3
+    return dict(steps=len(steps), wall_ms=(hi - lo) / 1e3,
+                device_busy_ms=busy / 1e3,
+                idle_share=max(0.0, 1.0 - busy / (hi - lo)) if hi > lo
+                else None,
+                copy_ms=copies / 1e3, collectives_ms=coll)
+
+
+class Trace:
+    """The profile of a block (see trace)."""
+
+    def __init__(self):
+        self.summary = None
+
+    @staticmethod
+    def step_range(k):
+        """A profiler range around step k of the block."""
+        return torch.profiler.record_function(f"{STEP_MARK}{k}")
+
+
 @contextlib.contextmanager
 def trace(profile_dir=None):
-    """torch.profiler trace of the block into profile_dir/trace.json."""
+    """torch.profiler trace of the block into profile_dir/trace.json;
+    yields a Trace (None when profile_dir is falsy) whose summary is set
+    when the block ends."""
     if not profile_dir:
-        yield
+        yield None
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,8 +195,15 @@ def trace(profile_dir=None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
+    out = Trace()
     with profile(activities=activities) as prof:
-        yield
+        yield out
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
+    out.summary = summarise([
+        (evt.name, evt.device_type != torch.autograd.DeviceType.CPU,
+         evt.time_range.start, evt.time_range.end)
+        for evt in prof.events()])
+    with open(os.path.join(profile_dir, "summary.json"), "w") as f:
+        json.dump(out.summary, f)
     print(f"profiler trace written to {path}")

@@ -132,6 +132,28 @@ def torch_to_flax(state):
     return tree
 
 
+def flax_variables_to_torch(variables):
+    """A flax variable tree {params, batch_stats} (models/densenet.py's
+    BatchNorm keeps its running 'mean' and 'var' in batch_stats) -> one
+    flat {state_dict key: np.ndarray}; the statistics keep their names and
+    layout."""
+    out = flax_to_torch(variables["params"])
+    out.update(flax_to_torch(variables.get("batch_stats", {})))
+    return out
+
+
+def torch_to_flax_variables(state):
+    """The inverse of flax_variables_to_torch: the 'mean' and 'var' leaves
+    go to batch_stats, everything else to params."""
+    stats = {k: v for k, v in state.items()
+             if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    out = {"params": torch_to_flax({k: v for k, v in state.items()
+                                    if k not in stats})}
+    if stats:
+        out["batch_stats"] = torch_to_flax(stats)
+    return out
+
+
 def flax_state_to_torch(state):
     """Flax-layout train state {params, opt: {group: {m, v, t}}, step} ->
     {params: flat, opt: {group: {m: flat, v: flat, t: int}}, step: int}.

@@ -243,13 +243,33 @@ def test_the_writer_matches_flax_on_a_train_state(runs):
 
 @pytest.mark.parametrize("override, match", [
     ({"gmm_backend": "sklearn"}, "scikit-learn"),
-    ({"mesh_shape": [2]}, "one device"),
+    ({"mesh_shape": [2, 2]}, "tensor-parallel"),
     ({"checkpoint_backend": "orbax"}, "msgpack backend")])
 def test_unported_options_raise_at_construction(tmp_path, override, match):
     cfg = _dirs(make_config(**{**TINY, **override}), tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         ttrainer.MNISTTrainer(make_model(cfg), DataGenerator(cfg), cfg,
                               device="cpu")
+
+
+def test_the_scaled_celeba_config_trains_in_one_process(tmp_path):
+    """codes/celeba_scaled_config.json (mesh_shape [8], bf16, single-pass
+    steps, 100 mixtures) as it stands, cut to a tiny width and a few
+    synthetic images: without LADDER_DISTRIBUTED the CLI trains it on the
+    one device, as ladder_tpu's train.py does with one device."""
+    cfg = json.loads((ROOT / "codes/celeba_scaled_config.json").read_text())
+    assert cfg["mesh_shape"] == [8]
+    cfg.update(num_hidden_units=16, code_size=16,
+               num_hidden_units_inner_VAE=8, n_layers_inner_VAE=2,
+               n_MC_samples=2, batch_size=8, num_epochs=1, enable_plots=0,
+               synthetic_data=1, synthetic_n_train=16, synthetic_n_val=8,
+               synthetic_n_test=8, data_path=str(tmp_path / "data"))
+    path = tmp_path / "scaled.json"
+    path.write_text(json.dumps(cfg))
+    trainer = _run_cli(tmp_path, ["--config", str(path), "--device", "cpu"])
+    assert trainer.mesh is None
+    assert trainer.state["step"] == 2
+    assert np.isfinite(trainer.metrics.train_loss).all()
 
 
 def test_steps_per_call_runs_the_same_epoch(tmp_path):
