@@ -125,11 +125,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    Logs per run and rank the step time, the gradient all-reduce's bytes,
    calls and host time a step, the profile of steps 2-4 (device busy and
    idle share, copies, the collectives' host time) and the peak memory.
+10. The (data, model) mesh: the same torchrun path with ``mesh_shape``
+   [n_data, n_model], the parameters and Adam moments held between steps
+   as each rank's shards (parallel/tp.py). (1) Phase 9's CelebA parity
+   run on [1, 2] (2 gloo ranks x 32 on the one card), alone and profiled,
+   then resumed to epoch 2, against one process on the same data at phase
+   9's bounds; the ranks bitwise equal (the digest of the gathered
+   state); each rank's bytes of parameters and moments at rest the
+   ``leaf_spec`` rule's exactly and at most TP_MEMORY_SHARE of the
+   replicated total; every rank's launches of the five kernels against
+   its epoch's count; the lead's checkpoint files byte for byte a
+   one-process save of the same state. (2) The pretrained mnist_digit
+   model on [2, 2] (4 gloo ranks x 64) on 8,192 images, 1 epoch then
+   resumed to 2 (phase 9's checks of the artifacts, the resume and the
+   launches). (3) The engine on the pretrained CelebA model with
+   mesh_devices=1 against 0: every path bitwise, the same K1 launches;
+   more mesh devices than cards refused; ``serve --mesh 1 --generate
+   64``. K5 on each rank's shards of the ae group against its plain
+   version. Logs per run and rank the step time, the ``param_gather``
+   and ``grad`` collectives' bytes, calls and host time a step, the idle
+   share of steps 2-4, the bytes at rest, the memory allocated between
+   steps and the peak. ``--only tp --tp-backend nccl`` puts every rank on
+   a card of its own over NCCL (4 cards), and then also holds the engine
+   with a replica on every card against one card.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result.
-``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel`` runs a part
+``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp`` runs a part
 of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
@@ -3312,13 +3335,23 @@ def _per_step(run, steps):
     """Per rank: the step time of steps 2-N under the profiler (its
     window over its steps) and of the whole epoch (wall over steps, the
     first step's warm-up included), the gradient all-reduce's MB, calls
-    and host ms a step, the profile's summary and the peak memory."""
+    and host ms a step (and every collective's, by tag), the profile's
+    summary, the state's bytes at rest and the memory allocated between
+    steps (a sharded state), and the peak memory."""
     out = []
     for rep in run["reports"]:
         t = rep["timings"][0]
         coll = (t.get("collectives") or {}).get("grad")
         prof = t.get("profile")
         out.append({
+            "collectives": {
+                tag: {"mb": c["bytes"] / steps / 1e6,
+                      "calls": c["calls"] / steps,
+                      "host_ms": c["seconds"] / steps * 1e3}
+                for tag, c in (t.get("collectives") or {}).items()},
+            "state_bytes": t.get("state_bytes"),
+            "allocated_gb": (t["memory_allocated"] / 1e9
+                             if t.get("memory_allocated") else None),
             "step_ms": t["train"]["step_ms"],
             "profiled_step_ms": (prof["wall_ms"] / prof["steps"]
                                  if prof else None),
@@ -3406,6 +3439,476 @@ def parallel_launches(res):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the (data, model) mesh through torchrun, then the engine's
+# mesh_devices
+# ---------------------------------------------------------------------------
+
+PHASE10 = ("== phase 10: the (data, model) mesh through torchrun -m "
+           "ladder_tpu_torch.train (gloo ranks sharing the one card), then "
+           "the serving engine's mesh_devices")
+# (1) phase 9's parity run on mesh_shape [1, 2]: the pretrained CelebA-128
+# 'ours' model in float32 mode 1, 2 gloo ranks x 32 rows, parameters and
+# Adam moments sharded over the model axis, 1 epoch of 4 steps at global
+# batch 64, then resumed to epoch 2; held against one process on the same
+# data at phase 9's bounds
+TP_OVERRIDES = dict(PARALLEL_OVERRIDES, mesh_shape=[1, 2])
+TP_RANKS = 2
+# a rank's bytes of parameters and moments at rest, over the replicated
+# total (ladder_tpu's own bound, tests/test_tensor_parallel.py:243)
+TP_MEMORY_SHARE = 0.55
+# (2) the pretrained mnist_digit model on mesh_shape [2, 2]: 4 gloo ranks x
+# 64 rows on 8,192 synthetic images, 1 epoch, then resumed to 2; plots off
+TP_MNIST_OVERRIDES = dict(PARALLEL_MNIST_OVERRIDES, mesh_shape=[2, 2])
+TP_MNIST_RANKS = 4
+SERVE_MESH_GENERATE = 64
+
+
+def _check_tp_memory(label, run):
+    """Every rank's bytes of parameters and moments at rest: the rule's
+    prediction exactly, at most TP_MEMORY_SHARE of the replicated total."""
+    for rep in run["reports"]:
+        for t in rep["timings"]:
+            b = t.get("state_bytes")
+            if b is None:
+                raise AssertionError(f"{label}: rank {rep['rank']} holds no "
+                                     "sharded state")
+            if b["held"] != b["predicted"] or (
+                    b["held"] > TP_MEMORY_SHARE * b["replicated"]):
+                raise AssertionError(f"{label}: rank {rep['rank']} holds "
+                                     f"{b}")
+
+
+def _check_tp_files(cfg, work, device):
+    """The lead's vae-model, prior-model and train-state files against a
+    one-process save of the state its train-state holds: byte for byte."""
+    import contextlib
+    import shutil
+    import tempfile
+    from ladder_tpu_torch.models.builder import make_model
+    from ladder_tpu_torch.training.step import flax_state, init_state
+    from ladder_tpu_torch.utils.checkpoint import (
+        CheckpointManager, load_msgpack, save_msgpack)
+
+    _, dirs = _results(work, cfg)
+    ckdir = os.path.join(work, dirs["checkpoint_dir"])
+    raw = load_msgpack(os.path.join(ckdir, "train-state.msgpack"))
+    state = init_state(make_model(cfg), flax_state=raw["state"],
+                       device=device)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
+    with contextlib.redirect_stdout(io.StringIO()):
+        CheckpointManager(dict(cfg, checkpoint_dir=out + "/")).save(
+            state["model"].flax_params(), model="joint")
+    save_msgpack(os.path.join(out, "train-state.msgpack"),
+                 {"state": flax_state(state), "extra": raw["extra"]})
+    try:
+        _same_files("tp: a one-process save of the same state", ckdir, out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return list(CHECKPOINT_FILES)
+
+
+def adam_shard_case(cfg, peaks, n_model=2, index=0):
+    """K5 over one rank's shards of the CelebA ae group (parallel/tp.py's
+    layout at n_model) against its plain version, three updates; timed as
+    phase 2 times the whole group."""
+    import torch
+    from ladder_tpu_torch.models.builder import make_model
+    from ladder_tpu_torch.ops import adam
+    from ladder_tpu_torch.parallel.tp import is_weight, leaf_spec, \
+        shard_params_tp
+    from ladder_tpu_torch.training.optim import ADAM_B1, ADAM_B2, ADAM_EPS
+    from ladder_tpu_torch.training.step import group_params
+
+    model = make_model(cfg, seed=3).to("cuda")
+    params = group_params(model, ("encoder", "decoder"))
+    specs = {k: leaf_spec(p.shape, n_model, is_weight(k, p))
+             for k, p in params.items()}
+    shards = shard_params_tp({k: p.detach() for k, p in params.items()},
+                             specs, index, n_model)
+    del model, params
+    group = [(s, 0) for s in shards.values()]
+    n = sum(s.numel() for s in shards.values())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    kernel, plain, grads = _adam_state(group, gen)
+    state = {"kernel": kernel, "plain": plain}
+    err = _adam_steps(f"ae shards of rank {index}", state, grads, (1, 2, 3))
+
+    def update():
+        adam.adam_update_(*_with_grads(state["kernel"], grads), 2.5e-4, 4,
+                          ADAM_B1, ADAM_B2, ADAM_EPS)
+
+    case = {"group": f"ae, rank {index} of {n_model}", "tensors": len(group),
+            "elements": n, "sharded_tensors": sum(
+                a is not None for a in specs.values()),
+            "max_abs_err": err}
+    case.update(_times(update, lambda: adam.adam_update_reference(
+        *_with_grads(state["plain"], grads), 2.5e-4, ADAM_B1, ADAM_B2,
+        ADAM_EPS), 50, ("adam_kernel",)))
+    if case["kernels_per_call"] != 1:
+        # late in a long process the profiler may record only some of the
+        # launches (2 of 50 after phases 1-9); each call is one launch, so
+        # the device time of a call is that of the launches it recorded,
+        # on average (CUDA events around a call would count the wrapper's
+        # host time, which is longer than the kernel)
+        case["profiler_ms"] = case["device_ms"]
+        case["ms"] = case["device_ms"] = (case["device_ms"]
+                                          / case["kernels_per_call"])
+        case["device_clock"] = ("profiler, per recorded launch: "
+                                f"{case['kernels_per_call']} a call seen")
+    case["bound_ms"], case["bound_by"] = _bound(28 * n, 12 * n, peaks)
+    log(f"  adam on the ae group's shards of rank {index} of {n_model}: "
+        f"{len(group)} tensors ({case['sharded_tensors']} sharded), {n} "
+        f"elements, max_abs_err {err:.3g} after 3 updates  "
+        f"{_fmt_times(case)}  bound {case['bound_ms'] * 1e3:.2f} us"
+        + (f" ({case['device_clock']})" if "device_clock" in case else ""))
+    del state, grads
+    torch.cuda.empty_cache()
+    return case
+
+
+def drive_tp_engine(cfg, device, serve_batch=SERVE_BATCH):
+    """The pretrained CelebA 'ours' model served with mesh_devices=1 against
+    mesh_devices=0: every path bitwise, the same norm-chain launches; more
+    mesh devices than the machine has refused. Returns the launches,
+    counted from 0."""
+    import torch
+    from ladder_tpu_torch.serving import InferenceEngine
+
+    rng = np.random.default_rng(3)
+    hw = (cfg["dim_input_x"], cfg["dim_input_y"], cfg["dim_input_channel"])
+    x = rng.random((serve_batch,) + hw, dtype=np.float32)
+    engines = [InferenceEngine(cfg, device=device, serve_batch=serve_batch,
+                               buckets=(1, 8), mesh_devices=m)
+               for m in (0, 1)]
+    reset_counters()
+    outs, launches = [], []
+    for eng in engines:
+        before = read_counters()["norm_chain_fwd"]
+        mean, std = eng.encode(x)
+        t_mean, t_std = eng.represent(x)
+        outs.append({
+            "encode": (mean, std), "represent": (t_mean, t_std),
+            "reconstruct": eng.reconstruct(x),
+            "reconstruct[3]": eng.reconstruct(x[:3]),
+            "decode": eng.decode(mean[:8]),
+            "decode_representation": eng.decode_representation(t_mean[:16]),
+            "generate": eng.generate(16, seed=0),
+            "t_log_density": eng.t_log_density(t_mean)})
+        launches.append(read_counters()["norm_chain_fwd"] - before)
+    for name, want in outs[0].items():
+        for g, w in zip(*((outs[1][name], want) if isinstance(want, tuple)
+                          else ((outs[1][name],), (want,)))):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"mesh_devices=1 {name} differs from "
+                                     "mesh_devices=0")
+    if launches[0] != launches[1] or (
+            torch.device(device).type == "cuda" and launches[0] <= 0):
+        raise AssertionError(f"norm-chain launches {launches} with "
+                             "mesh_devices 0 and 1")
+    count = torch.cuda.device_count() if torch.device(
+        device).type == "cuda" else 1
+    gap = None
+    if count > 1:
+        # every card a replica, the BatchNorm sums added across them: one
+        # card's results to rounding
+        wide = InferenceEngine(cfg, device=device, serve_batch=serve_batch,
+                               buckets=(1, 8), mesh_devices=count)
+        got = wide.reconstruct(x), wide.encode(x)[0], wide.generate(16, seed=0)
+        want = (outs[0]["reconstruct"], outs[0]["encode"][0],
+                outs[0]["generate"])
+        gap = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        if gap > GPU_CPU_MAX_ABS:
+            raise AssertionError(f"mesh_devices={count}: {gap} from one "
+                                 "card")
+        del wide
+    try:
+        InferenceEngine(cfg, device=device, serve_batch=serve_batch,
+                        mesh_devices=count + 1)
+    except ValueError as e:
+        if "devices are available" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"mesh_devices={count + 1} on {count} "
+                             "device(s) did not raise")
+    total = read_counters()
+    gen = outs[1]["generate"]
+    del engines
+    return {"launches": total, "norm_chain_per_engine": launches,
+            "paths": sorted(outs[0]), "generate16": gen,
+            "cards": count, "all_cards_gap": gap}
+
+
+def _start_serve_cli(device, config_path, serve_batch, n, out):
+    """python -m ladder_tpu_torch.serve --mesh 1 --generate n in a
+    subprocess; (process, start)."""
+    cmd = [sys.executable, "-m", "ladder_tpu_torch.serve", "--config",
+           config_path, "--mesh", "1", "--generate", str(n),
+           "--serve-batch", str(serve_batch), "--out", out]
+    cmd += ["--device", "cpu"] if _device_type(device) != "cuda" else []
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def _device_type(device):
+    import torch
+    return torch.device(device).type
+
+
+def drive_tp(device, overrides=TP_OVERRIDES,
+             mnist_overrides=TP_MNIST_OVERRIDES,
+             groups=os.path.join(ROOT, "pretrained_models", "celeba"),
+             mnist_groups=os.path.join(ROOT, "pretrained_models",
+                                       "mnist_digit"),
+             ranks=TP_RANKS, mnist_ranks=TP_MNIST_RANKS, profile=True,
+             serve_config=CONFIG, serve_batch=SERVE_BATCH,
+             serve_generate=SERVE_MESH_GENERATE, peaks=None,
+             backend="gloo"):
+    """Phase 10 (see the module docstring); every check of the phase.
+    ``device`` is the card's 'cuda' or, to rehearse, 'cpu'. The first
+    run of (1) runs alone and is profiled; the resume, (2), the one
+    process and the serve CLI run beside one another. ``serve_config``:
+    the served model's config (a path from the repository's root).
+    ``backend`` 'nccl': every rank on a card of its own (cuda:LOCAL_RANK),
+    which needs as many cards as ranks."""
+    import contextlib
+    import shutil
+    import tempfile
+    from ladder_tpu_torch.training import schedules
+
+    on_card = _device_type(device) == "cuda"
+    if backend == "nccl":
+        rank_device = None  # cuda:LOCAL_RANK
+    else:
+        rank_device = "cuda:0" if on_card else "cpu"
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    res = {"runs": {}}
+    try:
+        cfg = celeba_config(overrides)
+        bs = cfg["batch_size"]
+        steps = cfg["synthetic_n_train"] // bs
+        evals = 1 + cfg["synthetic_n_val"] // bs
+        data = os.path.join(work, "celeba_data") + "/"
+        runs, mruns = {}, {}
+
+        def celeba_cfg(name, **kw):
+            w = os.path.join(work, name)
+            if not os.path.isdir(w):
+                _copy_groups(groups, w, cfg["exp_name"])
+            return w, _write_config(w, "config.json", dict(
+                cfg, data_path=data, load_dir=w + "/", **kw))
+
+        # ---- (1) the ranks alone, profiled ------------------------------
+        w, path = celeba_cfg("tp", **({"profile_dir": os.path.join(
+            work, "tp", "profile")} if profile else {}))
+        runs["ranks"] = _ranks_run(f"celeba [1, 2], {ranks} {backend} ranks", w,
+                                   path, ranks, rank_device, backend)
+        runs["ranks"]["work"] = w
+        # epoch 1's curves and parameters, before the resume rewrites them
+        epoch1, _ = _results(w, cfg)
+        snap = os.path.join(work, "tp_epoch1")
+        shutil.copytree(os.path.join(w, _results(w, cfg)[1][
+            "checkpoint_dir"]), snap)
+
+        # ---- the others, beside one another -----------------------------
+        w, path = celeba_cfg("tp", num_epochs=2)
+        resumed = _torchrun(w, path, ranks, rank_device, backend)
+        mcfg = mnist_config(mnist_overrides)
+        mw = os.path.join(work, "mnist_tp")
+        _copy_groups(mnist_groups, mw, mcfg["exp_name"])
+        mpath = _write_config(mw, "config.json", dict(
+            mcfg, load_dir=mw + "/", num_epochs=1))
+        mstart = _torchrun(mw, mpath, mnist_ranks, rank_device, backend)
+        gen_out = os.path.join(work, "serve_mesh.npz")
+        serve = _start_serve_cli(device, serve_config, serve_batch,
+                                 serve_generate, gen_out)
+        w, path = celeba_cfg("one")
+        runs["one"] = _one_run("celeba, one process", w, path, device)
+        runs["one"].pop("trainer")
+        runs["one"]["work"] = w
+        ow = os.path.join(work, "mnist_one")
+        _copy_groups(mnist_groups, ow, mcfg["exp_name"])
+        opath = _write_config(ow, "config.json", dict(
+            mcfg, load_dir=ow + "/", num_epochs=1))
+        mruns["one"] = _one_run("mnist, one process", ow, opath, device)
+        mruns["one"].pop("trainer")
+        mruns["one"]["work"] = ow
+        mesh = mcfg["mesh_shape"]
+        mruns["ranks"] = _ranks_run(
+            f"mnist {mesh} to epoch 1, {mnist_ranks} {backend} ranks", mw, None,
+            mnist_ranks, started=mstart)
+        mruns["ranks"]["files"] = _artifact_files(mw)
+        mpath = _write_config(mw, "config.json", dict(
+            mcfg, load_dir=mw + "/", num_epochs=2))
+        mres = _torchrun(mw, mpath, mnist_ranks, rank_device, backend)
+        runs["resumed"] = _ranks_run(
+            f"celeba [1, 2] resumed to epoch 2, {ranks} {backend} ranks",
+            runs["ranks"]["work"], None, ranks, started=resumed)
+        runs["resumed"]["work"] = runs["ranks"]["work"]
+        mruns["resumed"] = _ranks_run(
+            f"mnist {mesh} resumed to epoch 2, {mnist_ranks} {backend} ranks", mw,
+            None, mnist_ranks, started=mres)
+        mruns["resumed"]["files"] = _artifact_files(mw)
+        for run in mruns.values():
+            run.setdefault("work", mw)
+        code, said, seconds = _finish(serve)
+        if code != 0:
+            raise AssertionError(f"serve --mesh 1: exit {code}\n{said[-3000:]}")
+
+        # ---- the checks -------------------------------------------------
+        want = _epoch_launches(cfg, 1, steps, evals, device)
+        if runs["one"]["launches"] != want:
+            raise AssertionError(f"celeba, one process: launched "
+                                 f"{runs['one']['launches']}, expected {want}")
+        _check_rank_launches(runs["ranks"]["label"], runs["ranks"], want)
+        _check_rank_launches(runs["resumed"]["label"], runs["resumed"],
+                             expected_epoch_launches(cfg, 1, steps, evals,
+                                                     False, device))
+        for key in ("ranks", "resumed"):
+            _check_tp_memory(runs[key]["label"], runs[key])
+        if "Full train state restored (epoch 1)." not in runs["resumed"][
+                "out"]:
+            raise AssertionError("celeba [1, 2]: the resumed ranks did not "
+                                 "restore the full train state of epoch 1")
+        run, one = runs["ranks"], runs["one"]
+        lr = max(max(schedules.all_lrs(cfg, 1).values()),
+                 schedules.lr_ae_celeba(cfg, 1))
+        run["first_loss_gap"] = abs(run["reports"][0]["train_loss"][0]
+                                    / one["reports"][0]["train_loss"][0] - 1)
+        if run["first_loss_gap"] > TRAIN_METRIC_RTOL:
+            raise AssertionError(f"celeba [1, 2]: first-step loss gap "
+                                 f"{run['first_loss_gap']}")
+        want_results, want_dirs = _results(one["work"], cfg)
+        run["curve_gaps"] = _curve_gaps(epoch1, want_results)
+        run["curve_gap"] = max(run["curve_gaps"][k] for k in PARALLEL_CURVES)
+        if run["curve_gap"] > PARALLEL_CURVE_RTOL:
+            raise AssertionError(f"celeba [1, 2]: curves "
+                                 f"{run['curve_gaps']} from one process's")
+        run["param_gap"] = _param_gap("", one["work"], {
+            "checkpoint_dir": snap}, want_dirs, lr)
+        if run["param_gap"][0] > TRAIN_PARAM_MAX_LR * steps:
+            raise AssertionError(f"celeba [1, 2]: parameters "
+                                 f"{run['param_gap'][0]} lr from one "
+                                 "process's")
+        res["files_equal"] = _check_tp_files(cfg, run["work"], device)
+        _check_parallel_mnist(mruns, mcfg, on_card)
+        msteps = mcfg["synthetic_n_train"] // mcfg["batch_size"]
+        for key in ("ranks", "resumed"):
+            _check_tp_memory(mruns[key]["label"], mruns[key])
+            got = mruns[key]["reports"][0]["launches"]["adam_update"]
+            if on_card and got != 4 * msteps:
+                raise AssertionError(f"{mruns[key]['label']}: {got} Adam "
+                                     f"launches, expected {4 * msteps}")
+        with np.load(gen_out) as z:
+            res["serve_cli"] = {"shape": list(z["x"].shape),
+                                "seconds": seconds}
+            if z["x"].shape[0] != serve_generate or not np.isfinite(
+                    z["x"]).all():
+                raise AssertionError(f"serve --mesh 1: {z['x'].shape}")
+        from ladder_tpu_torch.utils.config import process_config
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve_cfg = process_config(os.path.join(ROOT, serve_config))
+        res["engine"] = drive_tp_engine(serve_cfg, device, serve_batch)
+        with np.load(gen_out) as z:
+            # the CLI's first samples are the engine's generate(16)'s
+            n = min(16, serve_generate)
+            gap = float(np.abs(z["x"][:n] - res["engine"].pop(
+                "generate16")[:n]).max())
+        res["serve_cli"]["gap_to_engine"] = gap
+        if gap > GPU_CPU_MAX_ABS:
+            raise AssertionError(f"serve --mesh 1 --generate: {gap} from "
+                                 "the engine's generate")
+        if on_card:
+            res["adam_shards"] = [adam_shard_case(cfg, peaks, 2, i)
+                                  for i in range(2)]
+        for prefix, group in (("celeba", runs), ("mnist", mruns)):
+            res["runs"].update({f"{prefix}_{k}": v for k, v in group.items()})
+        res.update(cfg=cfg, steps=steps, mnist_cfg=mcfg, mnist_steps=msteps,
+                   backend=backend)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def log_tp(res, smi):
+    runs = res["runs"]
+    if res["backend"] == "gloo":
+        log(f"  runs on {smi} (gloo ranks share the one card in time and "
+            "stage their collectives through the host: no scaling number)")
+    else:
+        log(f"  runs on {smi}, one card a rank over NCCL")
+    for key in ("celeba_ranks", "celeba_one", "celeba_resumed",
+                "mnist_ranks", "mnist_resumed", "mnist_one"):
+        run = runs[key]
+        steps = res["steps"] if key.startswith("celeba") else res[
+            "mnist_steps"]
+        beside = "" if key == "celeba_ranks" else " (beside the others)"
+        log(f"    {run['label']}: {run['seconds']:.1f} s in all{beside}")
+        for rep, st in zip(run["reports"], _per_step(run, steps)):
+            line = (f"      rank {rep['rank']}/{rep['world']} "
+                    f"(n_model {rep.get('n_model')}): step " + (
+                        f"{st['profiled_step_ms']:.2f} ms (steps 2-"
+                        f"{st['profile']['steps'] + 1}, profiler on), "
+                        if st["profiled_step_ms"] else "")
+                    + f"{st['step_ms']:.2f} ms over the epoch with its "
+                    "first step")
+            for tag in ("param_gather", "grad"):
+                c = st["collectives"].get(tag)
+                if c:
+                    line += (f"; {tag} {c['mb']:.2f} MB in {c['calls']:.1f} "
+                             f"calls a step, {c['host_ms']:.2f} ms a step on "
+                             "the host")
+            if st["state_bytes"]:
+                b = st["state_bytes"]
+                line += (f"; parameters + moments at rest {b['held'] / 1e6:.2f}"
+                         f" MB (rule {b['predicted'] / 1e6:.2f} MB, replicated "
+                         f"{b['replicated'] / 1e6:.2f} MB, share "
+                         f"{b['held'] / b['replicated']:.3f})")
+            if st["allocated_gb"] is not None:
+                line += (f"; allocated between steps "
+                         f"{st['allocated_gb']:.2f} GB")
+            if st["peak_gb"] is not None:
+                line += f"; peak memory {st['peak_gb']:.2f} GB"
+            log(line)
+            if st["profile"]:
+                log(f"        {_fmt_profile(st['profile'])}")
+            log(f"        launches {rep['launches']}")
+    run = runs["celeba_ranks"]
+    log(f"  celeba [1, 2] against one process: first-step loss gap "
+        f"{run['first_loss_gap']:.3g} (bound {TRAIN_METRIC_RTOL}), curves "
+        f"{run['curve_gap']:.3g} (bound {PARALLEL_CURVE_RTOL}), parameters "
+        f"{run['param_gap'][0]:.3g} lr max, {run['param_gap'][1]:.3g} lr "
+        f"mean (bound {TRAIN_PARAM_MAX_LR} lr a step); the files "
+        f"{', '.join(res['files_equal'])} byte for byte a one-process save "
+        "of the same state")
+    for case in res.get("adam_shards", []):
+        log(f"  adam {case['group']}: max_abs_err {case['max_abs_err']:.3g} "
+            f"{_fmt_times(case)} on {smi}"
+            + (f" ({case['device_clock']})" if "device_clock" in case
+               else ""))
+    eng = res["engine"]
+    log(f"  engine mesh_devices=1 vs 0: {', '.join(eng['paths'])} bitwise "
+        f"equal; norm-chain launches {eng['norm_chain_per_engine']}; serve "
+        f"--mesh 1 --generate: "
+        f"{res['serve_cli']['shape']} in {res['serve_cli']['seconds']:.1f} "
+        f"s, {res['serve_cli']['gap_to_engine']:.3g} from the engine"
+        + (f"; mesh_devices={eng['cards']} on {eng['cards']} cards within "
+           f"{eng['all_cards_gap']:.3g} of one card"
+           if eng["all_cards_gap"] is not None else ""))
+
+
+def tp_launches(res):
+    """Every kernel's launches over phase 10: all ranks of every run, the
+    one-process runs and the engine."""
+    total = dict(res["engine"]["launches"])
+    for run in res["runs"].values():
+        if "reports" in run:
+            for rep in run["reports"]:
+                total = {k: total[k] + rep["launches"][k] for k in total}
+    return total
+
+
 def times_only(package, cfg, peaks):
     """``--only times``: phase 2's checks and times of the norm-chain
     forward at the stage shapes and of the Adam update over the
@@ -3465,12 +3968,16 @@ def main(argv=None):
     parser.add_argument("--only", choices=("build", "kernels", "serving",
                                            "training", "mnist", "celeba",
                                            "interp", "utils", "parallel",
-                                           "times"))
+                                           "tp", "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
                         help="compare DIR's kernel times with this tree's")
     parser.add_argument("--out", help="write the --ab results here (JSON)")
+    parser.add_argument("--tp-backend", default="gloo",
+                        choices=("gloo", "nccl"),
+                        help="--only tp: the ranks' backend; nccl puts each "
+                             "rank on a card of its own (4 cards)")
     args = parser.parse_args(argv)
     if args.ab:
         ab(os.path.abspath(args.ab), args.out)
@@ -3547,6 +4054,10 @@ def main(argv=None):
     if only == "parallel":
         log(PHASE9)
         log_parallel(drive_parallel("cuda"), smi)
+        return 0
+    if only == "tp":
+        log(PHASE10)
+        log_tp(drive_tp("cuda", peaks=peaks, backend=args.tp_backend), smi)
         return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
@@ -3685,10 +4196,22 @@ def main(argv=None):
     if missing:
         raise AssertionError(f"phase 9 never launched {missing}")
     del parallel
+    torch.cuda.empty_cache()
+
+    log(PHASE10)
+    tp = drive_tp("cuda", peaks=peaks)
+    log_tp(tp, smi)
+    tp_total = tp_launches(tp)
+    missing = [k for k, v in tp_total.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"phase 10 never launched {missing}")
+    tp_adam = tp.get("adam_shards")
+    del tp
 
     total = {k: serving[k] + training[k] + mnist_launches[k]
              + celeba_launches[k] + interp_launches[k] + prior_launches[k]
-             + utils_launches[k] + parallel_total[k] for k in serving}
+             + utils_launches[k] + parallel_total[k] + tp_total[k]
+             for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -3701,7 +4224,7 @@ def main(argv=None):
         output_stage_entry("output_stage_bwd",
                            "ladder_tpu/ops/pallas_output.py:193", out_bwd,
                            total["output_stage_bwd"]),
-        adam_entry(adam_c, total["adam_update"])]
+        dict(adam_entry(adam_c, total["adam_update"]), tp_shards=tp_adam)]
     for entry in kernels:
         entry["launches_serving"] = serving[entry["name"]]
         entry["launches_training"] = training[entry["name"]]
@@ -3711,6 +4234,7 @@ def main(argv=None):
         entry["launches_priors"] = prior_launches[entry["name"]]
         entry["launches_utils"] = utils_launches[entry["name"]]
         entry["launches_parallel"] = parallel_total[entry["name"]]
+        entry["launches_tp"] = tp_total[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

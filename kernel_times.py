@@ -21,6 +21,7 @@ import time
 
 # more than five times the H100's 50 MB L2 cache
 L2_FLUSH_BYTES = 256 << 20
+PROFILE_ATTEMPTS = 3
 
 
 def _warm(fn, times=3):
@@ -38,23 +39,27 @@ def device_ms(fn, iters, marks, flush=None):
     from torch.profiler import ProfilerActivity, profile
 
     _warm(fn)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    total_us, launches = 0.0, 0
-    for evt in prof.key_averages():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and any(mark in evt.key for mark in marks)):
-            total_us += evt.self_device_time_total
-            launches += evt.count
-    if not total_us:
-        raise RuntimeError(f"the profiler recorded no device time for "
-                           f"{marks}: device time not measured")
-    return total_us / 1e3 / iters, launches / iters
+    # the card's profiler now and then records no device event at all: the
+    # measurement is taken again, up to PROFILE_ATTEMPTS times
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        total_us, launches = 0.0, 0
+        for evt in prof.key_averages():
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and any(mark in evt.key for mark in marks)):
+                total_us += evt.self_device_time_total
+                launches += evt.count
+        if total_us:
+            return total_us / 1e3 / iters, launches / iters
+    raise RuntimeError(f"the profiler recorded no device time for {marks} "
+                       f"in {PROFILE_ATTEMPTS} attempts: device time not "
+                       "measured")
 
 
 def call_ms(fn, iters):

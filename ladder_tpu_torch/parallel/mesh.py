@@ -33,7 +33,10 @@ never enter.
 Collectives used: all_reduce, all_gather, broadcast and barrier, which
 both NCCL and gloo (CUDA tensors included, staged through the host) offer.
 ``make_mesh`` (``ladder_tpu``'s name) joins the process group from
-torchrun's environment and returns the mesh.
+torchrun's environment and returns the mesh: a DataMesh, or for a
+mesh_shape [n_data, n_model] a Mesh2D, which adds the model-axis groups
+over which parallel/tp.py shards the parameters and moments
+(``shard_state``).
 """
 
 from __future__ import annotations
@@ -54,8 +57,11 @@ def check_mesh_shape(shape, world=1):
     """config['mesh_shape'] against the number of ranks, as ``ladder_tpu``
     reads it: None or [N] with N >= world is a data mesh over the world
     ranks (``devices[:n]`` on fewer devices); N < world leaves ranks with
-    nothing to do; two axes are the tensor-parallel mesh (parallel/tp.py),
-    not ported yet; three or more are refused as ``ladder_tpu`` refuses
+    nothing to do. [n_data, n_model] is the (data, model) mesh
+    (parallel/tp.py): the world must be a multiple of n_model (whole model
+    groups) and at most n_data * n_model; one rank trains on its one
+    device whatever the mesh says, as ``ladder_tpu``'s train.py does on
+    one device. Three or more axes are refused as ``ladder_tpu`` refuses
     them."""
     if not shape:
         return
@@ -67,10 +73,21 @@ def check_mesh_shape(shape, world=1):
             "parallel) - a 3-D mesh would silently flatten to 1-D data "
             "parallelism, so fail loudly instead")
     if len(shape) == 2:
-        raise NotImplementedError(
-            f"mesh_shape {shape}: the 2-D (data, model) tensor-parallel "
-            "mesh (ladder_tpu/parallel/tp.py) is not ported yet; the port "
-            "runs data parallelism over [n_data] (ROADMAP.md)")
+        n_data, n_model = shape
+        if n_data < 1 or n_model < 1:
+            raise ValueError(f"mesh_shape {shape}: both axes must be >= 1")
+        if world == 1:
+            return
+        if world % n_model:
+            raise ValueError(
+                f"mesh_shape {shape}: {world} ranks are not a multiple of "
+                f"n_model={n_model}; every model group needs all its ranks")
+        if world > n_data * n_model:
+            raise ValueError(
+                f"mesh_shape {shape} holds {n_data * n_model} ranks, "
+                f"{world} were started: {world - n_data * n_model} of them "
+                "would have nothing to do")
+        return
     if shape[0] < world:
         raise ValueError(
             f"mesh_shape {shape} is smaller than the {world} ranks started: "
@@ -234,6 +251,34 @@ class DataMesh:
                     offset += n
 
 
+class Mesh2D(DataMesh):
+    """A (data, model) mesh: a DataMesh over the whole world (every rank
+    takes its own rows) plus this rank's model group, the n_model ranks
+    r // n_model * n_model .. + n_model - 1, over which the parameters and
+    moments are sharded (parallel/tp.py)."""
+
+    def __init__(self, rank, world, device, n_model, model_group=None,
+                 group=None, backend=None):
+        super().__init__(rank, world, device, group=group, backend=backend)
+        self.n_model = int(n_model)
+        self.model_rank = self.rank % self.n_model
+        self.model_group = model_group
+
+    def __repr__(self):
+        return (f"Mesh2D(rank={self.rank}, world={self.world}, "
+                f"n_model={self.n_model}, device={self.device}, "
+                f"backend={self.backend})")
+
+    def gather_model(self, tensor, tag="param_gather"):
+        """[n] on every rank of the model group -> its n_model tensors, in
+        model-rank order."""
+        tensor = tensor.contiguous()
+        parts = [torch.empty_like(tensor) for _ in range(self.n_model)]
+        with self._counted(tag, tensor):
+            dist.all_gather(parts, tensor, group=self.model_group)
+        return parts
+
+
 def sharded(mesh):
     """The mesh when its rows are split across ranks, else None."""
     return mesh if mesh is not None and mesh.sharded else None
@@ -357,7 +402,8 @@ def make_mesh(config=None, device=None, backend=None):
         raise ValueError(f"backend {backend!r}: nccl or gloo")
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"the NCCL backend needs a CUDA device, not {dev}")
-    check_mesh_shape((config or {}).get("mesh_shape"), world)
+    shape = (config or {}).get("mesh_shape")
+    check_mesh_shape(shape, world)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -373,7 +419,34 @@ def make_mesh(config=None, device=None, backend=None):
         dist.all_gather_object(identities, ident, group=probe)
         dist.destroy_process_group(probe)
         _distinct_devices(identities)
+    if shape and len(shape) == 2:
+        from ladder_tpu_torch.parallel.tp import make_mesh_2d
+        n_model = int(shape[1]) if world > 1 else 1  # one rank: one device
+        mine = None
+        # every rank creates every model group, in the same order
+        for ranks in make_mesh_2d(n_model=n_model, world=world):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+        return Mesh2D(rank, world, dev, n_model, model_group=mine,
+                      backend=backend)
     return DataMesh(rank, world, dev, backend=backend)
+
+
+def shard_state(state, mesh):
+    """The train state on the mesh (``ladder_tpu``'s shard_state): rank
+    0's parameters and moments broadcast to every rank, then, on a (data,
+    model) mesh, held as this rank's shards (parallel/tp.py; returns the
+    ShardedState, also state['tp']). None on a 1-D mesh."""
+    from ladder_tpu_torch.parallel.tp import model_axis_size, \
+        shard_train_state
+    tensors = list(state["model"].parameters())
+    for group in state["opt"].values():
+        tensors += list(group["m"].values()) + list(group["v"].values())
+    mesh.replicate_(tensors)
+    if model_axis_size(mesh) > 1:
+        return shard_train_state(state, mesh)
+    return None
 
 
 def stats_delta(after, before):

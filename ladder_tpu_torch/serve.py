@@ -18,10 +18,12 @@
     #   GET  /generate?n=16&seed=0 ; GET /healthz
 
 ``--device`` defaults to cuda and the CLI fails when there is no CUDA
-device; pass ``--device cpu`` to run on the CPU. The HTTP server
-micro-batches concurrent requests (``--no-batching`` turns it off) and
-drains on SIGTERM/SIGINT: in-flight requests finish and queued batches run
-before the process exits.
+device; pass ``--device cpu`` to run on the CPU. ``--mesh N`` serves on
+cuda:0..N-1, a replica of the model on each and every batch split across
+them (serving/engine.py); it raises when fewer devices are available. The
+HTTP server micro-batches concurrent requests (``--no-batching`` turns it
+off) and drains on SIGTERM/SIGINT: in-flight requests finish and queued
+batches run before the process exits.
 """
 
 from __future__ import annotations
@@ -176,6 +178,9 @@ def main(argv=None):
     ap.add_argument("--serve-batch", type=int, default=64)
     ap.add_argument("--dtype", default=None,
                     choices=[None, "float32", "bfloat16"])
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="serve on N devices (cuda:0..N-1), a replica on "
+                         "each, every batch split across them")
     ap.add_argument("--allow-uninitialized", action="store_true",
                     help="serve random-init weights when checkpoints are "
                          "missing (smoke tests only)")
@@ -201,7 +206,7 @@ def main(argv=None):
     cfg = process_config(args.config)
     engine = InferenceEngine(
         cfg, checkpoint_dir=args.checkpoint_dir, gm_info_path=args.gm_info,
-        serve_batch=args.serve_batch, dtype=args.dtype,
+        serve_batch=args.serve_batch, dtype=args.dtype, mesh_devices=args.mesh,
         allow_uninitialized=args.allow_uninitialized,
         bn_stats_path=args.bn_stats, device=args.device)
 

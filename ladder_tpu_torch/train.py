@@ -24,14 +24,22 @@ group before any device use (parallel/mesh.py:make_mesh: NCCL on
 CUDA, gloo on the CPU, gloo on CUDA only with ``--backend gloo``), takes
 cuda:LOCAL_RANK unless ``--device`` names one, and trains its rows of every
 global batch (config['batch_size'] is the global batch). ``mesh_shape``
-[N] needs N >= the ranks started; a 2-D mesh_shape is refused. Without
-LADDER_DISTRIBUTED the CLI trains on its one device whatever mesh_shape
-says, as ``train.py`` does on one device. Rank 0 writes every file and
+[N] needs N >= the ranks started. ``mesh_shape`` [n_data, n_model] is the
+(data, model) mesh (parallel/tp.py): the ranks started must be a multiple
+of n_model and at most n_data * n_model; every rank still takes its own
+rows, and the parameters and Adam moments are sharded over each group of
+n_model ranks between steps:
+
+    LADDER_DISTRIBUTED=1 torchrun --nproc_per_node 4 -m ladder_tpu_torch.train --config cfg.json   # mesh_shape [2, 2]
+
+Without LADDER_DISTRIBUTED the CLI trains on its one device whatever
+mesh_shape says, as ``train.py`` does on one device. Rank 0 writes every file and
 prints the console lines; the other ranks print nothing to stdout.
 
 ``--report FILE`` writes, per process, a JSON record of the run: the rank,
 the world size, the device, the kernels' launch counts, a digest of the
-parameters, the Adam moments and the fitted GMs, the train and validation
+parameters, the Adam moments and the fitted GMs (of the whole state,
+gathered, on a (data, model) mesh), the train and validation
 curves, the per-epoch timings (with the step loop's collectives under a
 mesh, and the profile's summary when config['profile_dir'] is set) and the
 peak device memory.
@@ -60,7 +68,14 @@ from ladder_tpu_torch.utils.device import resolve_device
 def state_digest(trainer):
     """sha256 over the bytes of every parameter, Adam moment and fitted GM
     tensor of the trainer, in a fixed order: equal on ranks that hold the
-    same values bit for bit."""
+    same values bit for bit. A sharded state is gathered first (on every
+    rank: collective)."""
+    from ladder_tpu_torch.training.step import whole_state
+    with whole_state(trainer.state):
+        return _digest(trainer)
+
+
+def _digest(trainer):
     h = hashlib.sha256()
     tensors = [p for _, p in sorted(trainer.model.named_parameters())]
     for name in sorted(trainer.state["opt"]):
@@ -89,6 +104,7 @@ def write_report(path, trainer, mesh, device):
     rank = mesh.rank if mesh is not None else 0
     report = dict(
         rank=rank, world=mesh.world if mesh is not None else 1,
+        n_model=getattr(mesh, "n_model", None),
         backend=mesh.backend if mesh is not None else None,
         device=str(device), launches=launch_counts(),
         digest=state_digest(trainer), step=trainer.state["step"],

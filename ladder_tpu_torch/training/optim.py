@@ -29,7 +29,7 @@ def adam_init(params):
 
 
 def adam_update(grads, state, params, lr, b1=ADAM_B1, b2=ADAM_B2,
-                eps=ADAM_EPS, skip_nonfinite=False):
+                eps=ADAM_EPS, skip_nonfinite=False, mesh=None):
     """One clipped TF1-style Adam step on {name: parameter}, in place:
     params, state['m'], state['v'] and state['t'] change. grads are the
     unclipped gradients, {name: tensor}.
@@ -40,13 +40,17 @@ def adam_update(grads, state, params, lr, b1=ADAM_B1, b2=ADAM_B2,
     applies it (clip_grads, then adam_update): an infinite element clips to
     +-1 and passes, a NaN drops the update. On a CUDA device a kernel raises a flag and the host reads it, which
     costs one host synchronisation per group update; without the guard the
-    update never synchronises."""
+    update never synchronises. ``mesh``: the ranks hold different shards
+    of the group (parallel/tp.py), so they agree first: a non-finite
+    element on any rank drops the update on all."""
     names = list(params)
     p = [params[k] for k in names]
     g = [grads[k] for k in names]
     m = [state["m"][k] for k in names]
     v = [state["v"][k] for k in names]
-    if skip_nonfinite and any_nonfinite(p, g, m, v):
-        return
+    if skip_nonfinite:
+        bad = any_nonfinite(p, g, m, v)
+        if (mesh.any(bad) if mesh is not None else bad):
+            return
     state["t"] += 1
     adam_update_(p, g, m, v, lr, state["t"], b1, b2, eps)

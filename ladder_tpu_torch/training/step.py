@@ -34,6 +34,14 @@ clip and the Adam kernel, so every rank applies the same update; the
 returned metrics are averaged across the ranks, so they are the global
 batch's. In mode 1 every sub-step has its own gradient all-reduce.
 
+On a (data, model) mesh the state is sharded (parallel/tp.py: state['tp'],
+from parallel/mesh.py:shard_state): a step gathers the full parameters
+before its first forward, applies each group's update through the Adam
+kernel to this rank's shards of the averaged gradients, gathers an
+updated group again before the next forward reads it (mode 1), and frees
+the full parameters at its end. ``flax_state`` and ``load_flax_state``
+gather the whole state and are collective on such a mesh.
+
 In float32 mode the step runs with TF32 off for convolutions and matmuls,
 as the serving engine does. ``jax.jit``, buffer donation and ``lax.scan``
 have no counterpart here: ``scan_unroll``, ``donate_batch_stack`` and the
@@ -119,8 +127,21 @@ def init_state(model, flax_state=None, device="cuda"):
     return state
 
 
+def whole_state(state):
+    """The full state inside the block: a context that gathers a sharded
+    state (collective) and reshards it after, else nothing."""
+    tp = state.get("tp")
+    return tp.whole() if tp is not None else contextlib.nullcontext()
+
+
 def load_flax_state(state, flax_state):
-    """Overwrite ``state`` with a flax-layout train state."""
+    """Overwrite ``state`` with a flax-layout train state (on a (data,
+    model) mesh: on every rank, each keeping its shards)."""
+    with whole_state(state):
+        _load_flax_state(state, flax_state)
+
+
+def _load_flax_state(state, flax_state):
     loaded = flax_state_to_torch(flax_state)
     model = state["model"]
     device = next(model.parameters()).device
@@ -143,10 +164,11 @@ def load_flax_state(state, flax_state):
 
 def flax_state(state):
     """The train state as a flax-layout tree of numpy arrays (the inverse
-    of load_flax_state)."""
-    return torch_state_to_flax(dict(
-        params=state["model"].state_dict(),
-        opt=state["opt"], step=state["step"]))
+    of load_flax_state; on a (data, model) mesh gathered on every rank)."""
+    with whole_state(state):
+        return torch_state_to_flax(dict(
+            params=state["model"].state_dict(),
+            opt=state["opt"], step=state["step"]))
 
 
 def _images(batch, device):
@@ -200,9 +222,41 @@ def _global_metrics(out, mesh):
     return mesh.average_metrics(out) if sharded(mesh) is not None else out
 
 
-def _apply_update(cfg, grads, opt_state, params, lr):
+def _apply_update(cfg, grads, opt_state, params, lr, mesh=None):
     adam_update(grads, opt_state, params, lr,
-                skip_nonfinite=bool(cfg.get("skip_nonfinite_updates", 0)))
+                skip_nonfinite=bool(cfg.get("skip_nonfinite_updates", 0)),
+                mesh=mesh)
+
+
+def _update_group(cfg, state, name, grads, params, lr, mesh):
+    """One group's update: on the parameters, or on a sharded state on
+    this rank's shards of the (averaged) gradients, after which the group's
+    full parameters are stale."""
+    tp = state.get("tp")
+    if tp is None:
+        _apply_update(cfg, grads, state["opt"][name], params, lr)
+        return
+    _apply_update(cfg, tp.shard_grads(grads), state["opt"][name],
+                  {k: tp.shards[k] for k in params}, lr, mesh)
+    tp.updated(params)
+
+
+@contextlib.contextmanager
+def _step_params(state):
+    """A sharded state's full parameters are freed when the step ends."""
+    tp = state.get("tp")
+    try:
+        yield
+    finally:
+        if tp is not None:
+            tp.free()
+
+
+def _gather(state):
+    """The full parameters that are not current (a sharded state)."""
+    tp = state.get("tp")
+    if tp is not None:
+        tp.gather()
 
 
 def make_train_step(model, mesh=None):
@@ -234,20 +288,20 @@ def make_train_step(model, mesh=None):
         # sub-steps differentiate loss_prior directly
         del sg_overlap
         model = state["model"]
-        opt = state["opt"]
         x = _images(batch, next(model.parameters()).device)
         feed = _NoiseFeed(model, generator, noise, mesh)
         out = {}
 
         def grad_step(name, lr, select):
+            _gather(state)
             params = group_params(model, groups[name])
             loss_ae, metrics = compute_loss(model, x, gm=gm, flags=flags,
                                             noise=feed.next(x), mesh=mesh)
             grads = _gradients(select(loss_ae, metrics), params, mesh)
-            _apply_update(cfg, grads, opt[name], params, lr)
+            _update_group(cfg, state, name, grads, params, lr, mesh)
             return metrics
 
-        with _exact(model):
+        with _exact(model), _step_params(state):
             if cfg["TRAIN_VAE"] == 1:
                 m = grad_step("ae", lrs["ae"], lambda L, _: L)
                 out["ae"] = _small(m)
@@ -303,7 +357,6 @@ def _make_single_pass_step(model, mesh=None):
         gradient, so the prior groups take a second, explicit backward of
         loss_prior, on the same noise and at the same parameter point."""
         model = state["model"]
-        opt = state["opt"]
         x = _images(batch, next(model.parameters()).device)
         draws = _NoiseFeed(model, generator, noise, mesh).next(x)
         names = active_groups(do_prior)
@@ -320,7 +373,8 @@ def _make_single_pass_step(model, mesh=None):
             grads = _gradients(select(loss_ae, metrics), merged, mesh)
             return params, grads, metrics
 
-        with _exact(model):
+        with _exact(model), _step_params(state):
+            _gather(state)
             # every gradient is taken before any update: all groups update
             # at the same parameter point
             updates = [group_gradients(main_names, lambda L, _: L)]
@@ -330,8 +384,8 @@ def _make_single_pass_step(model, mesh=None):
                     prior_names, lambda L, met: met["loss_prior"]))
             for params, grads, _ in updates:
                 for name, ps in params.items():
-                    _apply_update(cfg, {k: grads[k] for k in ps}, opt[name],
-                                  ps, lrs[name])
+                    _update_group(cfg, state, name, {k: grads[k] for k in ps},
+                                  ps, lrs[name], mesh)
 
         out = {}
         small = _small(metrics)

@@ -59,8 +59,19 @@ What differs and why, each named where it lives:
     fitted on every rank on the gathered samples, then rank 0's fit is
     broadcast; an init or a restore is broadcast from rank 0; a
     preemption signal on any rank stops all of them after the epoch.
+  * the (data, model) mesh (``mesh`` a parallel/mesh.py Mesh2D, from
+    mesh_shape [n_data, n_model] under LADDER_DISTRIBUTED=1): every rank
+    still trains on its own rows, as above, and the parameters and Adam
+    moments are held as this rank's shards between steps
+    (parallel/tp.py). An init or a restore is broadcast whole from rank 0
+    and then sharded; the step gathers what it needs; the forwards after
+    the step loop (GM samples, prior samples, test and validation) run
+    with the full parameters gathered, freed at the epoch's end; the
+    checkpoints gather the whole state on every rank and the lead writes
+    ``ladder_tpu``'s bytes. Each epoch's record holds the state's bytes
+    at rest and, on a card, the memory allocated between steps.
   * not ported, and refused at construction rather than skipped: the
-    sklearn GM backend and the 2-D tensor-parallel mesh_shape.
+    sklearn GM backend.
 """
 
 from __future__ import annotations
@@ -93,6 +104,7 @@ from ladder_tpu_torch.parallel.mesh import (
     check_mesh_shape,
     copy_stats,
     shard_batch,
+    shard_state,
     stats_delta,
 )
 from ladder_tpu_torch.training import schedules
@@ -104,6 +116,7 @@ from ladder_tpu_torch.training.step import (
     make_eval_step,
     make_forward_fns,
     make_train_step,
+    whole_state,
 )
 from ladder_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -152,15 +165,16 @@ def _to_host(tree):
     return rebuild(host)
 
 
-def _refuse_unported(config, world):
+def _refuse_unported(config, mesh):
     if config.get("gmm_backend", "jax") == "sklearn":
         raise NotImplementedError(
             "gmm_backend='sklearn' is not ported (the port does not depend "
             "on scikit-learn); it fits the GM on the device "
             "(gmm_backend 'jax')")
-    # [N] trains over the ranks started (one process: the one device, as
-    # ladder_tpu's train.py does); 2-D meshes are not ported
-    check_mesh_shape(config.get("mesh_shape"), world)
+    # one process trains on its one device whatever the mesh says, as
+    # ladder_tpu's train.py does
+    check_mesh_shape(config.get("mesh_shape"),
+                     mesh.world if mesh is not None else 1)
 
 
 class JointTrainer:
@@ -169,7 +183,7 @@ class JointTrainer:
     there)."""
 
     def __init__(self, model, data, config, device="cuda", mesh=None):
-        _refuse_unported(config, mesh.world if mesh is not None else 1)
+        _refuse_unported(config, mesh)
         self.mesh = mesh
         self.is_lead = mesh is None or mesh.is_lead
         self.model = model
@@ -204,9 +218,11 @@ class JointTrainer:
         # per epoch: the step timer's summary, each GM fit's seconds and
         # iterations, the validation loop's seconds
         self.timings = []
-        self._replicate()
-
         self.num_para_list = model.count_params()
+        # rank 0's init on every rank; on a (data, model) mesh this rank's
+        # shards from here on
+        self.tp = shard_state(self.state, mesh) if mesh is not None else None
+
         print("Total number of trainable parameters in VAE network is:\n"
               "{}k\n".format(np.around(sum(self.num_para_list) / 1000, 2)))
 
@@ -272,6 +288,13 @@ class JointTrainer:
             if gm is not None:
                 tensors += list(gm)
         self.mesh.replicate_(tensors)
+
+    def _full_params(self):
+        """Every full parameter inside the block (gathered, then freed, on
+        a (data, model) mesh)."""
+        if self.tp is None:
+            return contextlib.nullcontext()
+        return self.tp.gathered()
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -345,13 +368,15 @@ class JointTrainer:
             for _ in range(max(0,
                                self.config["num_epochs"] - self.cur_epoch)):
                 self.train_epoch()
-                if self.is_lead:
-                    params = self.model.flax_params()
-                    if self.prior in PRIORS_WITH_PRIOR_MODEL:
-                        self.ckpt.save(params, model="joint")
-                    else:
-                        self.ckpt.save(params, model="VAE")
-                    self.save_full_state()
+                # a sharded state is gathered on every rank; the lead writes
+                if self.is_lead or self.tp is not None:
+                    with whole_state(self.state):
+                        params = self.model.flax_params()
+                        if self.prior in PRIORS_WITH_PRIOR_MODEL:
+                            self.ckpt.save(params, model="joint")
+                        else:
+                            self.ckpt.save(params, model="VAE")
+                        self.save_full_state()
                 self._barrier()
                 self.compute_execution_time(self.cur_epoch - 1,
                                             self.config["num_epochs"])
@@ -421,8 +446,23 @@ class JointTrainer:
             # the step loop's collectives (count, bytes, host seconds)
             record["collectives"] = stats_delta(copy_stats(self.mesh),
                                                 collectives)
+        if self.tp is not None:
+            # at rest: the shards (each step freed its full parameters)
+            record["state_bytes"] = dict(
+                zip(("predicted", "replicated"), self.tp.predicted_bytes()),
+                held=self.tp.held_bytes())
+            if self.device.type == "cuda":
+                record["memory_allocated"] = torch.cuda.memory_allocated(
+                    self.device)
         self._timer_summary = record["train"] = timer.report(
             prefix=f"epoch {self.cur_epoch}: ")
+        with self._full_params():
+            self._epoch_tail(record, outs, do_prior, flags)
+
+    def _epoch_tail(self, record, outs, do_prior, flags):
+        """After the step loop: the curves, the GM fit, the prior samples,
+        the test batch, the validation loop and the lead's files."""
+        cfg = self.config
 
         train_loss_cur_epoch = 0.0
         n_iter = len(outs)
@@ -701,7 +741,7 @@ class JointTrainer:
         elif self.prior == "GMM":
             if self.cur_epoch >= cfg["num_epochs"]:
                 mode = "accurate-GM"
-        with self._whole():
+        with self._whole(), self._full_params():
             codes = self.sample_codes_from_prior(n_sample ** 2, mode=mode,
                                                  method=method)
             images = self.fwd["decode"](codes).cpu().numpy()
@@ -721,15 +761,17 @@ class JointTrainer:
     def test_step(self, batch, print_result=False):
         """The fixed test batch's diagnostics; under a mesh each rank runs
         its rows and the metrics are averaged across the ranks."""
-        m = _to_host(self.eval_step(self._place_rows(batch), self.generator,
-                                    self._gm_for_step(), self._flags()))
-        if self.plots_enabled:
-            # the reconstruction the plots show: a fresh posterior sample,
-            # decoded (trainer.py:684-689); whole on every rank
-            with self._whole():
-                z = self.fwd["encode_sample"](self._place(batch),
-                                              self.generator)
-                self.output_test = self.fwd["decode"](z).cpu().numpy()
+        with self._full_params():
+            m = _to_host(self.eval_step(self._place_rows(batch),
+                                        self.generator, self._gm_for_step(),
+                                        self._flags()))
+            if self.plots_enabled:
+                # the reconstruction the plots show: a fresh posterior
+                # sample, decoded (trainer.py:684-689); whole on every rank
+                with self._whole():
+                    z = self.fwd["encode_sample"](self._place(batch),
+                                                  self.generator)
+                    self.output_test = self.fwd["decode"](z).cpu().numpy()
         if print_result:
             print("test loss: elbo: {:.4f}, recons_loss_l1: {:.4f}, "
                   "entropy z: {:.4f}, cross entropy z: {:.4f}, "
@@ -819,7 +861,13 @@ class JointTrainer:
 
     def restore(self):
         """The reference's startup restore of the two groups, or a
-        full-state resume when 'train-state' exists; on every rank."""
+        full-state resume when 'train-state' exists; on every rank (a
+        sharded state is gathered, loaded, broadcast from rank 0 and
+        sharded again)."""
+        with whole_state(self.state):
+            self._restore()
+
+    def _restore(self):
         full = self.ckpt.load_full()
         if full is not None:
             state, extra = full

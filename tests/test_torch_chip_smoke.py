@@ -559,3 +559,4 @@ def test_parallel_phase_rehearsal_on_cpu(tmp_path, capsys):
     chip_smoke.log_parallel(res, "cpu")
     out = capsys.readouterr().out
     assert "gradient all-reduce" in out and "first-step loss gap" in out
+

@@ -304,16 +304,22 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
 def test_two_rank_step_matches_jax_mesh(ranks, jax_steps, name):
-    cfg = ranks["cases"][name]
     want, jout = jax_steps[name]
-    outs = ranks["outs"](name)
+    hold_ranks_step(ranks["cases"][name], want, jout, ranks["outs"](name))
+
+
+def hold_ranks_step(cfg, want, jout, outs):
+    """The ranks' outputs of one step (their loss, their gathered state,
+    the gradients they applied) against ladder_tpu's new state and
+    metrics, at the bounds of the module docstring."""
     for got in outs:
         np.testing.assert_allclose(got["loss"], np.asarray(
             jout["ae"]["loss_ae"]), rtol=1e-5)
     # the ranks applied the same update: bitwise equal states
-    for (_, a), (_, b) in zip(_leaves(outs[0]["state"]),
-                              _leaves(outs[1]["state"])):
-        np.testing.assert_array_equal(a, b)
+    for other in outs[1:]:
+        for (_, a), (_, b) in zip(_leaves(outs[0]["state"]),
+                                  _leaves(other["state"])):
+            np.testing.assert_array_equal(a, b)
     got = outs[0]["state"]
     assert jax.tree.structure(got["params"]) == jax.tree.structure(
         want["params"])
@@ -402,7 +408,14 @@ def test_global_batchnorm_matches_one_process(ranks):
     ([8], 2, None, None),
     ([2], 2, None, None),
     ([1], 2, ValueError, "nothing to do"),
-    ([2, 2], 1, NotImplementedError, "tensor-parallel"),
+    ([2, 2], 1, None, None),      # one rank: its one device
+    ([2, 2], 4, None, None),
+    ([4, 2], 6, None, None),      # 3 of the 4 data groups
+    ([1, 2], 2, None, None),
+    ([2, 2], 3, ValueError, "not a multiple of n_model"),
+    ([2, 3], 4, ValueError, "not a multiple of n_model"),
+    ([2, 2], 8, ValueError, "nothing to do"),
+    ([1, 2], 4, ValueError, "nothing to do"),
     ([2, 2, 2], 1, ValueError, "3 axes"),
 ])
 def test_mesh_shape_rules(shape, world, error, match):

@@ -161,7 +161,8 @@ def test_bf16_within_band_of_float32(engines):
 
 def test_engine_construction_errors(engines, tmp_path):
     cfg = engines[0]
-    with pytest.raises(ValueError, match="mesh_devices"):
+    # more mesh devices than the one CPU the engine is given
+    with pytest.raises(ValueError, match="devices are available"):
         InferenceEngine(cfg, serve_batch=4, device="cpu", mesh_devices=2)
     empty = dict(cfg, checkpoint_dir=str(tmp_path / "none"))
     with pytest.raises(FileNotFoundError, match="allow_uninitialized"):
@@ -169,6 +170,110 @@ def test_engine_construction_errors(engines, tmp_path):
     eng = InferenceEngine(empty, serve_batch=4, device="cpu",
                           allow_uninitialized=True)
     assert eng.reconstruct(_images(1, 0)).shape == (1, 128, 128, 3)
+
+
+@pytest.fixture(scope="module")
+def mesh_engine(engines):
+    return InferenceEngine(engines[0], serve_batch=4, buckets=(2,),
+                           device="cpu", mesh_devices=2,
+                           devices=["cpu", "cpu"])
+
+
+def tiny_mnist(tmp_path, seed=0):
+    """A mnist_digit 'ours' model (tests/conftest.py's), saved through
+    ladder_tpu's checkpoint and GM artifacts."""
+    from tests.conftest import make_config
+
+    cfg = make_config(n_mixtures=4)
+    cfg["checkpoint_dir"] = str(tmp_path / "ckpt") + "/"
+    cfg["result_dir"] = str(tmp_path / "result") + "/"
+    os.makedirs(cfg["checkpoint_dir"], exist_ok=True)
+    os.makedirs(cfg["result_dir"], exist_ok=True)
+    params = jmake(cfg).init(jax.random.PRNGKey(seed))
+    CheckpointManager(cfg).save({"params": params}, model="joint")
+    rng = np.random.default_rng(seed)
+    save_gm_prior_info(cfg["result_dir"], np.full((4,), 0.25),
+                       rng.standard_normal((4, 2)),
+                       np.stack([np.eye(2) * 0.5] * 4))
+    return cfg
+
+
+def _every_path(eng, cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, cfg["dim_input_x"], cfg["dim_input_y"],
+                    cfg["dim_input_channel"])).astype(np.float32)
+    t = rng.standard_normal((n, cfg["representation_size"])).astype(
+        np.float32)
+    z = rng.standard_normal((n, cfg["code_size"])).astype(np.float32)
+    out = {}
+    for name, arg in (("encode", x), ("reconstruct", x), ("represent", x),
+                      ("decode", z), ("decode_representation", t),
+                      ("t_log_density", t)):
+        got = getattr(eng, name)(arg)
+        out[name] = got if isinstance(got, tuple) else (got,)
+    out["generate"] = (eng.generate(n, seed=7),)
+    return out
+
+
+def _hold_paths(got, want, tol):
+    for name in want:
+        for g, w in zip(got[name], want[name]):
+            assert g.shape == w.shape, name
+            np.testing.assert_allclose(g, w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("n", [3, 1, 9])  # bucket 4, bucket 2, chunks
+def test_mesh_devices_match_one_device(tmp_path_factory, n):
+    """mesh_devices=2 on two CPU replicas: every path of a small 'ours'
+    model within 1e-5 of mesh_devices=0 (tests/test_serving.py:189-198;
+    the mnist family has no BatchNorm: each row's result is its own)."""
+    cfg = tiny_mnist(tmp_path_factory.mktemp("served_mnist"))
+    one = InferenceEngine(cfg, serve_batch=4, buckets=(2,), device="cpu")
+    two = InferenceEngine(cfg, serve_batch=4, buckets=(2,), device="cpu",
+                          mesh_devices=2, devices=["cpu", "cpu"])
+    assert two.buckets == one.buckets == [2, 4]
+    _hold_paths(_every_path(two, cfg, n, n), _every_path(one, cfg, n, n),
+                dict(rtol=1e-5, atol=1e-5))
+
+
+@pytest.mark.parametrize("n", [3, 9])
+def test_mesh_devices_share_batchnorm_statistics(engines, mesh_engine, n):
+    """The CelebA 'ours' model on two CPU replicas: the encoder's
+    batch-statistic BatchNorm sees the whole padded batch, its channel sums
+    added across the replicas, so every path agrees with one device at
+    TOL (the sums are added in another order, and a BatchNorm of few rows
+    at 2x2 amplifies their rounding: up to 1.8e-5 on a decoded pixel at 9
+    rows). Each replica alone would normalise its own half: far off."""
+    cfg, _, teng = engines
+    _hold_paths(_every_path(mesh_engine, cfg, n, 30 + n),
+                _every_path(teng, cfg, n, 30 + n), TOL)
+    x = _images(4, seed=40)
+    halves = np.concatenate([teng.encode(x[:2])[0], teng.encode(x[2:])[0]])
+    assert np.abs(halves - mesh_engine.encode(x)[0]).max() > 1e-2
+
+
+def test_mesh_validation_and_export_refusal(engines, mesh_engine, tmp_path):
+    """ladder_tpu's messages: too many devices, a serve_batch that does not
+    divide; buckets that do not divide are dropped; a mesh engine does not
+    export."""
+    from ladder_tpu_torch.serving.export import export_inference
+
+    cfg = engines[0]
+    two = ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="devices are available"):
+        InferenceEngine(cfg, serve_batch=4, device="cpu", mesh_devices=3,
+                        devices=two)
+    with pytest.raises(ValueError, match="divisible"):
+        InferenceEngine(cfg, serve_batch=5, device="cpu", mesh_devices=2,
+                        devices=two)
+    eng = InferenceEngine(cfg, serve_batch=8, buckets=(1, 2, 3, 6),
+                          device="cpu", mesh_devices=2, devices=two)
+    assert eng.buckets == [2, 6, 8]
+    with pytest.raises(ValueError, match="single-device"):
+        export_inference(mesh_engine, str(tmp_path / "exported"))
+    with pytest.raises(ValueError, match="devices are available"):
+        tserve.main(["--config", str(_write_config(cfg, tmp_path)),
+                     "--device", "cpu", "--mesh", "2", "--generate", "1"])
 
 
 def test_cuda_requested_without_a_card_raises(engines, monkeypatch):
@@ -204,14 +309,14 @@ def test_cli_reconstruct_round_trip(engines, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "ladder_tpu_torch.serve", "--config",
          str(cfg_path), "--device", "cpu", "--serve-batch", "4",
-         "--reconstruct", str(tmp_path / "in.npz"),
+         "--mesh", "1", "--reconstruct", str(tmp_path / "in.npz"),
          "--out", str(tmp_path / "out.npz")],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "wrote (5, 128, 128, 3) reconstructions" in proc.stdout
     with np.load(tmp_path / "out.npz") as z:
-        # the CLI engine has the default buckets (1, 8): 5 rows run as one
-        # padded batch of 4 + 1 in both engines
+        # the CLI engine (one device of a mesh) has the default buckets
+        # (1, 8): 5 rows run as one padded batch of 4 + 1 in both engines
         np.testing.assert_allclose(z["x"], teng.reconstruct(x), **TOL)
 
 

@@ -243,13 +243,28 @@ def test_the_writer_matches_flax_on_a_train_state(runs):
 
 @pytest.mark.parametrize("override, match", [
     ({"gmm_backend": "sklearn"}, "scikit-learn"),
-    ({"mesh_shape": [2, 2]}, "tensor-parallel"),
+    ({"mesh_shape": [2, 2, 2]}, "3 axes"),
     ({"checkpoint_backend": "orbax"}, "msgpack backend")])
 def test_unported_options_raise_at_construction(tmp_path, override, match):
+    """What the port does not run is refused before any step: the options
+    not ported, and a 3-axis mesh, which ladder_tpu refuses too."""
     cfg = _dirs(make_config(**{**TINY, **override}), tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if "mesh_shape" in override else NotImplementedError
+    with pytest.raises(error, match=match):
         ttrainer.MNISTTrainer(make_model(cfg), DataGenerator(cfg), cfg,
                               device="cpu")
+
+
+def test_a_2d_mesh_shape_trains_on_the_one_device(tmp_path):
+    """mesh_shape [2, 2] in one process (no mesh): the one device, the
+    state unsharded, as ladder_tpu's train.py does on one device."""
+    cfg = _dirs(make_config(**{**TINY, "mesh_shape": [2, 2],
+                               "num_epochs": 1}), tmp_path)
+    trainer = ttrainer.MNISTTrainer(make_model(cfg), DataGenerator(cfg), cfg,
+                                    device="cpu")
+    trainer.train()
+    assert trainer.tp is None and "tp" not in trainer.state
+    assert trainer.state["step"] == STEPS
 
 
 def test_the_scaled_celeba_config_trains_in_one_process(tmp_path):
