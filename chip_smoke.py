@@ -148,11 +148,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps and the peak. ``--only tp --tp-backend nccl`` puts every rank on
    a card of its own over NCCL (4 cards), and then also holds the engine
    with a replica on every card against one card.
+11. The quality record: ``python -m ladder_tpu_torch.quality``'s run() in
+   this process at the published widths, data and epochs cut. (a)
+   codes/mnist_digit_config.json on 4,096 + 1,024 synthetic images for 6
+   epochs (sg_pretraining's 5 and one of prior training ending in a GM
+   fit), the FID over 512 generated images; then ``python -m
+   ladder_tpu_torch.eval_fid --network encoder`` on the record's two npz
+   files. (b) codes/celeba_config.json (h=512, code 256, batch 64) on 128
+   images for 1 epoch with the prior trained from the start and an
+   accurate fit after it, the FID over 512 images (more than the code's
+   256 dimensions, so that the features' covariance has full rank).
+   Checks: the record's scale values finite, an active mixture, the
+   FID's self-floor under QUALITY_SELF_FLOOR, each epoch's launches (K5
+   on every group update of (a); K1-K5 of (b)'s steps and evaluations)
+   and the generation's (four K1 a CelebA decoding call), eval_fid's FID
+   within QUALITY_EVAL_FID_RTOL of the record's. Logs each record's
+   endpoints, keys, per-epoch times and launches.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits 1
 and prints no result.
-``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp`` runs a part
+``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp|quality`` runs a part
 of it (for debugging; it then prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
@@ -1734,7 +1750,8 @@ def expected_epoch_launches(cfg, mode, steps, evals, sg_overlap, device):
 
 class _Recorder:
     """While on: every JointTrainer epoch records the kernel launches it
-    made (timings[-1]['launches']), and the train step built by a trainer
+    made (timings[-1]['launches']) and each optimiser group's updates
+    (timings[-1]['group_updates']), and the train step built by a trainer
     keeps a copy, taken on the step's stream, of the first ``keep``
     batches it is given."""
 
@@ -1759,9 +1776,12 @@ class _Recorder:
 
         def train_epoch(trainer):
             before = read_counters()
+            t_before = {g: o["t"] for g, o in trainer.state["opt"].items()}
             recorder.real_epoch(trainer)
             trainer.timings[-1]["launches"] = {
                 k: v - before[k] for k, v in read_counters().items()}
+            trainer.timings[-1]["group_updates"] = adam_updates(trainer,
+                                                                t_before)
 
         trainer_mod.make_train_step = make_train_step
         trainer_mod.JointTrainer.train_epoch = train_epoch
@@ -2249,16 +2269,17 @@ def interp_model(label, cfg, argv, device, random_init=False,
     return out
 
 
-def _check_epoch_adam_launches(label, trainer, updates):
-    """Each epoch's Adam launches: one per updated group per step."""
-    groups = sum(1 for n in updates.values() if n)
+def _check_epoch_group_launches(label, trainer):
+    """Each epoch's Adam launches: one per group update of that epoch
+    (during sg_pretraining the prior's groups take none)."""
     cuda = trainer.device.type == "cuda"
     for t in trainer.timings:
-        want = groups * trainer.n_train_iter() if cuda else 0
+        want = sum(t["group_updates"].values()) if cuda else 0
         if t["launches"]["adam_update"] != want:
             raise AssertionError(f"{label}: epoch {t['epoch']} made "
                                  f"{t['launches']['adam_update']} Adam "
-                                 f"launches, expected {want}")
+                                 f"launches, expected {want} "
+                                 f"({t['group_updates']})")
 
 
 def _train_run(label, cfg, work, device, epochs, t_before):
@@ -2272,7 +2293,7 @@ def _train_run(label, cfg, work, device, epochs, t_before):
     with _Recorder(0):
         trainer, out, seconds, launches = _run_train_cli(work, path, device)
     updates = _check_mnist_run(label, trainer, launches, epochs, t_before)
-    _check_epoch_adam_launches(label, trainer, updates)
+    _check_epoch_group_launches(label, trainer)
     result_dir = os.path.join(work, trainer.config["result_dir"])
     with np.load(os.path.join(result_dir,
                               f"{cfg['exp_name']}-result.npz")) as r:
@@ -3909,6 +3930,188 @@ def tp_launches(res):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the quality record (python -m ladder_tpu_torch.quality) at the
+# published widths, data and epochs cut
+# ---------------------------------------------------------------------------
+
+PHASE11 = ("== phase 11: the quality record through python -m "
+           "ladder_tpu_torch.quality (mnist_digit and CelebA-128, data and "
+           "epochs cut), then eval_fid on its files")
+# (a) codes/mnist_digit_config.json as published (h=256, inner VAE 5x512,
+# 50 mixtures, 100 MC samples, batch 256) on 4,096 + 1,024 synthetic
+# images for 6 epochs: sg_pretraining's 5, then one epoch of prior
+# training ending in a GM fit; 512 generated images against as many
+# validation images
+QUALITY_DIGIT_ARGS = ("--config", "codes/mnist_digit_config.json",
+                      "--epochs", "6", "--n-train", "4096", "--n-test",
+                      "1024", "--fid-samples", "512")
+# (b) codes/celeba_config.json (h=512, code 256, batch 64) on 128 training
+# images for 1 epoch, the prior trained from the start and fitted
+# accurately after it, 512 validation images against 512 generated: with
+# fewer images than the code's 256 dimensions the features' covariance is
+# singular, and the self-floor is ~4e-8 of its trace in either package's
+# FID (-2e-5 with 64 images), above QUALITY_SELF_FLOOR
+QUALITY_CELEBA_ARGS = ("--config", "codes/celeba_config.json", "--epochs",
+                       "1", "--n-train", "128", "--n-test", "64",
+                       "--fid-samples", "512")
+QUALITY_CELEBA_OVERRIDES = {"sg_pretraining": 0, "accurate_fit": 1,
+                            "synthetic_n_val": 512}
+# the self-floor, the FID of the validation set against itself (as
+# tests/test_scripts.py holds ladder_tpu's)
+QUALITY_SELF_FLOOR = 1e-6
+# eval_fid on the record's own files against the record's FID (relative)
+QUALITY_EVAL_FID_RTOL = 1e-6
+
+
+def expected_generation_launches(cfg, n, serve_batch, device):
+    """Launches of InferenceEngine.generate(n): every decoding call of a
+    CelebA model runs the decoder's four norm-chain stages; the mnist
+    decoder and the encoders launch none."""
+    import torch
+    out = dict.fromkeys(kernel_counters(), 0)
+    if cfg["exp_name"] == "celeba" and torch.device(device).type == "cuda":
+        out["norm_chain_fwd"] = 4 * -(-n // serve_batch)
+    return out
+
+
+def quality_run(label, argv, work, device):
+    """quality.run on argv in work, every epoch's launches recorded; the
+    record's checks: its scale keys finite, an active mixture, the FID's
+    self-floor, each epoch's launches (K5 for every group update; on
+    CelebA K1-K5 for its steps and evaluations) and the generation's."""
+    from ladder_tpu_torch import quality
+    from ladder_tpu_torch.quality_spread import SCALE_KEYS
+
+    out = os.path.join(work, "record.json")
+    argv = list(argv) + ["--workdir", work, "--out", out,
+                         "--device", device]
+    reset_counters()
+    t0 = time.perf_counter()
+    with _Recorder(0):
+        _, record, trainer = quality.run(argv)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    cfg = trainer.config
+    bad = {k: record[k] for k in SCALE_KEYS + ("sigma_start",)
+           if not np.isfinite(record[k])}
+    if bad:
+        raise AssertionError(f"{label}: record values not finite: {bad}")
+    if not record["active_mixtures"] or record["active_mixtures"] < 1:
+        raise AssertionError(f"{label}: active_mixtures "
+                             f"{record['active_mixtures']}")
+    if not abs(record["encoder_fid_self_floor"]) < QUALITY_SELF_FLOOR:
+        raise AssertionError(f"{label}: FID self-floor "
+                             f"{record['encoder_fid_self_floor']}")
+    epochs = tuple(range(1, cfg["num_epochs"] + 1))
+    if cfg["exp_name"] == "celeba":
+        _check_celeba_run(label, trainer, epochs, cfg["fused_train_step"],
+                          device)
+    else:
+        _check_mnist_run(label, trainer, launches, epochs, {})
+        _check_epoch_group_launches(label, trainer)
+    trained = {k: sum(t["launches"][k] for t in trainer.timings)
+               for k in launches}
+    gen = expected_generation_launches(cfg, record["fid_samples"],
+                                       SERVE_BATCH, device)
+    want = {k: trained[k] + gen[k] for k in launches}
+    if launches != want:
+        raise AssertionError(f"{label}: launched {launches}, expected "
+                             f"{want} (epochs {trained}, generation {gen})")
+    return {"label": label, "record": record, "trainer": trainer,
+            "seconds": seconds, "launches": launches, "config": cfg,
+            "timings": trainer.timings}
+
+
+def eval_fid_on(run, device):
+    """python -m ladder_tpu_torch.eval_fid's main on the record's two npz
+    files with the trained encoder; its FID against the record's."""
+    import contextlib
+    from ladder_tpu_torch import eval_fid
+
+    cfg, work = run["config"], run["record"]["workdir"]
+    cfg_path = os.path.join(work, "trained_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eval_fid.main([os.path.join(work, "real.npz"),
+                       os.path.join(work, "generated.npz"),
+                       "--network", "encoder", "--config", cfg_path,
+                       "--checkpoint-dir", cfg["checkpoint_dir"],
+                       "--resize-to", str(cfg["dim_input_x"]),
+                       "--device", device])
+    seconds = time.perf_counter() - t0
+    line = json.loads(buf.getvalue().splitlines()[-1])
+    want = run["record"]["encoder_fid_generated_vs_test"]
+    rel = abs(line["fid"] - want) / max(abs(want), 1e-12)
+    if not rel <= QUALITY_EVAL_FID_RTOL:
+        raise AssertionError(f"{run['label']}: eval_fid {line['fid']} vs "
+                             f"the record's {want}: relative {rel}")
+    return {"fid": line["fid"], "rel": rel, "seconds": seconds}
+
+
+def drive_quality(device, digit_args=QUALITY_DIGIT_ARGS,
+                  celeba_args=QUALITY_CELEBA_ARGS,
+                  celeba_overrides=QUALITY_CELEBA_OVERRIDES):
+    """Phase 11: (a) the mnist_digit record and eval_fid on its files,
+    (b) the CelebA-128 record; returns both runs and their launches."""
+    import shutil
+    import tempfile
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        digit = quality_run("mnist_digit record", digit_args,
+                            os.path.join(work, "digit"), device)
+        digit["eval_fid"] = eval_fid_on(digit, device)
+        digit.pop("trainer")
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        celeba = quality_run(
+            "celeba record", list(celeba_args)
+            + ["--override", json.dumps(celeba_overrides)],
+            os.path.join(work, "celeba"), device)
+        celeba.pop("trainer")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k: digit["launches"][k] + celeba["launches"][k]
+                for k in digit["launches"]}
+    return {"digit": digit, "celeba": celeba, "launches": launches}
+
+
+def log_quality(res, smi):
+    for key in ("digit", "celeba"):
+        run = res[key]
+        rec, cfg = run["record"], run["config"]
+        log(f"  {run['label']} on {smi}: {run['seconds']:.1f} s in all, "
+            f"train_wall_s {rec['train_wall_s']} ({cfg['num_epochs']} "
+            f"epochs at batch {cfg['batch_size']}, h="
+            f"{cfg['num_hidden_units']}, {rec['data']['n_train']} images)")
+        log("    " + ", ".join(
+            f"{k} {rec[k]}" for k in (
+                "final_train_neg_elbo", "final_val_neg_elbo",
+                "final_train_recons", "final_val_recons", "sigma_start",
+                "sigma_final", "n_curve_points", "active_mixtures",
+                "encoder_fid_generated_vs_test", "encoder_fid_self_floor",
+                "fid_samples")))
+        log(f"    record keys {list(rec)}")
+        for t in run["timings"]:
+            fits = ", ".join(f"{g['mode']} {g['seconds']:.3f} s"
+                             for g in t["gm"])
+            log(f"    epoch {t['epoch']}: {t['train']['steps']} steps, step "
+                f"{t['train']['step_ms']:.2f} ms (epoch wall / steps), "
+                f"validation {t['val_s']:.3f} s, GM fits [{fits}], group "
+                f"updates {t['group_updates']}")
+        log(f"    launches {run['launches']}")
+    ev = res["digit"]["eval_fid"]
+    log(f"  eval_fid --network encoder on the mnist_digit record's files: "
+        f"{ev['fid']} in {ev['seconds']:.1f} s, {ev['rel']:.3g} from the "
+        f"record's (bound {QUALITY_EVAL_FID_RTOL})")
+
+
 def times_only(package, cfg, peaks):
     """``--only times``: phase 2's checks and times of the norm-chain
     forward at the stage shapes and of the Adam update over the
@@ -3968,7 +4171,7 @@ def main(argv=None):
     parser.add_argument("--only", choices=("build", "kernels", "serving",
                                            "training", "mnist", "celeba",
                                            "interp", "utils", "parallel",
-                                           "tp", "times"))
+                                           "tp", "quality", "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -4058,6 +4261,10 @@ def main(argv=None):
     if only == "tp":
         log(PHASE10)
         log_tp(drive_tp("cuda", peaks=peaks, backend=args.tp_backend), smi)
+        return 0
+    if only == "quality":
+        log(PHASE11)
+        log_quality(drive_quality("cuda"), smi)
         return 0
 
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
@@ -4207,11 +4414,21 @@ def main(argv=None):
         raise AssertionError(f"phase 10 never launched {missing}")
     tp_adam = tp.get("adam_shards")
     del tp
+    torch.cuda.empty_cache()
+
+    log(PHASE11)
+    quality = drive_quality("cuda")
+    log_quality(quality, smi)
+    quality_total = quality["launches"]
+    missing = [k for k, v in quality_total.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"phase 11 never launched {missing}")
+    del quality
 
     total = {k: serving[k] + training[k] + mnist_launches[k]
              + celeba_launches[k] + interp_launches[k] + prior_launches[k]
              + utils_launches[k] + parallel_total[k] + tp_total[k]
-             for k in serving}
+             + quality_total[k] for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -4235,6 +4452,7 @@ def main(argv=None):
         entry["launches_utils"] = utils_launches[entry["name"]]
         entry["launches_parallel"] = parallel_total[entry["name"]]
         entry["launches_tp"] = tp_total[entry["name"]]
+        entry["launches_quality"] = quality_total[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

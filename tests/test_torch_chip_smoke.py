@@ -560,3 +560,72 @@ def test_parallel_phase_rehearsal_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "gradient all-reduce" in out and "first-step loss gap" in out
 
+
+
+def test_quality_phase_rehearsal_on_cpu(tmp_path, capsys):
+    """Phase 11 on the CPU: the mnist_digit record at h=64 (the mnist
+    decoder's last stage has h // 64 channels; 3 epochs of 256 images, the
+    prior's groups from epoch 2, a fit after epoch 3), eval_fid on its
+    files and the CelebA record at h=16 (16 images at batch 8), in this
+    process; every check of the phase (the launches counted as none: CPU
+    tensors never launch a kernel)."""
+    small = dict(num_hidden_units=16, n_mixtures=3, n_MC_samples=2,
+                 num_hidden_units_inner_VAE=16, n_layers_inner_VAE=2)
+    digit = ("--config", "codes/mnist_digit_config.json", "--epochs", "3",
+             "--n-train", "256", "--n-test", "128", "--fid-samples", "64",
+             "--override", json.dumps(dict(small, sg_pretraining=2,
+                                           accurate_fit=1, batch_size=64,
+                                           num_hidden_units=64)))
+    celeba = ("--config", "codes/celeba_config.json", "--epochs", "1",
+              "--n-train", "16", "--n-test", "8", "--fid-samples", "8")
+    res = chip_smoke.drive_quality(
+        "cpu", digit_args=digit, celeba_args=celeba,
+        celeba_overrides=dict(chip_smoke.QUALITY_CELEBA_OVERRIDES,
+                              code_size=16, batch_size=8,
+                              synthetic_n_val=8, **small))
+    for key, epochs in (("digit", 3), ("celeba", 1)):
+        rec = res[key]["record"]
+        assert rec["recipe"]["num_epochs"] == epochs
+        assert rec["active_mixtures"] >= 1
+        assert abs(rec["encoder_fid_self_floor"]) < chip_smoke.QUALITY_SELF_FLOOR
+        assert not any(res[key]["launches"].values())
+    # epoch 1 pretrains (the ae and sigma groups); the prior's groups
+    # train from the last pretraining epoch on, as in (a): 4 steps an epoch
+    assert [t["group_updates"] for t in res["digit"]["timings"]] == [
+        {"ae": 4, "sigma": 4, "prior": 0, "inner_sigma": 0}] + [
+        {"ae": 4, "sigma": 4, "prior": 4, "inner_sigma": 4}] * 2
+    assert res["celeba"]["record"]["recipe"]["exp_name"] == "celeba"
+    assert res["celeba"]["record"]["fid_samples"] == 8
+    assert res["digit"]["eval_fid"]["rel"] <= chip_smoke.QUALITY_EVAL_FID_RTOL
+    assert not any(res["launches"].values())
+    chip_smoke.log_quality(res, "cpu")
+    out = capsys.readouterr().out
+    assert "mnist_digit record on cpu" in out and "celeba record on cpu" in out
+    assert "eval_fid --network encoder" in out
+
+
+def test_quality_phase_configs_and_generation_launches():
+    """Phase 11 at the published widths: only data and epochs cut, (a)
+    ending one epoch after sg_pretraining; a CelebA decoding call is four
+    norm-chain launches."""
+    from ladder_tpu_torch.utils.config import process_config
+    args = dict(zip(chip_smoke.QUALITY_DIGIT_ARGS[::2],
+                    chip_smoke.QUALITY_DIGIT_ARGS[1::2]))
+    digit = process_config(f"{chip_smoke.ROOT}/{args['--config']}")
+    assert int(args["--epochs"]) == digit["sg_pretraining"] + 1
+    assert (digit["num_hidden_units"], digit["batch_size"],
+            digit["n_mixtures"], digit["n_MC_samples"]) == (256, 256, 50, 100)
+    args = dict(zip(chip_smoke.QUALITY_CELEBA_ARGS[::2],
+                    chip_smoke.QUALITY_CELEBA_ARGS[1::2]))
+    celeba = process_config(f"{chip_smoke.ROOT}/{args['--config']}")
+    assert (celeba["num_hidden_units"], celeba["code_size"],
+            celeba["batch_size"]) == (512, 256, 64)
+    assert set(chip_smoke.QUALITY_CELEBA_OVERRIDES) == {
+        "sg_pretraining", "accurate_fit", "synthetic_n_val"}
+    assert chip_smoke.expected_generation_launches(
+        celeba, 65, 64, "cuda") == dict(
+        dict.fromkeys(chip_smoke.kernel_counters(), 0), norm_chain_fwd=8)
+    assert not any(chip_smoke.expected_generation_launches(
+        digit, 512, 64, "cuda").values())
+    assert not any(chip_smoke.expected_generation_launches(
+        celeba, 64, 64, "cpu").values())

@@ -178,6 +178,20 @@ def test_sources_cover_the_interpolation_slice():
         assert f"ladder_tpu_torch/{name}" in covered
 
 
+def test_sources_cover_the_quality_slice():
+    """The quality record, its seed spread and the FID CLI, each the
+    counterpart of a script of the JAX package and run with python -m."""
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name, script in (("quality.py", "quality_baseline.py"),
+                         ("quality_spread.py", "quality_spread.py"),
+                         ("eval_fid.py", "eval_fid.py")):
+        assert f"ladder_tpu_torch/{name}" in covered
+        assert (ROOT / "scripts" / script).is_file()
+        text = (ROOT / "ladder_tpu_torch" / name).read_text()
+        assert 'if __name__ == "__main__":' in text
+        assert f"scripts/{script}" in text  # names its counterpart
+
+
 def _module_level_imports(path):
     """The roots a module imports when it is imported: its top-level
     statements, with the bodies of top-level if/try blocks, not its
