@@ -164,12 +164,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the generation's (four K1 a CelebA decoding call), eval_fid's FID
    within QUALITY_EVAL_FID_RTOL of the record's. Logs each record's
    endpoints, keys, per-epoch times and launches.
+12. The scripts, as the port's modules, in this process (their main) at
+   the published widths, data and epochs cut, over phase 11's files:
+   ``verify_real_data check`` on phase 11 (a)'s synthetic MNIST set
+   (written as mnist.npz) and (b)'s CelebA TFRecords, ``compare`` on
+   (a)'s result files against docs/envelopes/, held check by check
+   against this script's own numpy reading of the same files (a cut run
+   may fail the envelope; the same checks must fail); ``sweep_gmm`` on
+   codes/mnist_digit_config.json at 10 and 50 mixtures, 2,048 + 512
+   images, 5 epochs (the last ends in the first fast fit); ``memory_report``
+   on codes/celeba_config.json at batch 64 float32 modes 1 and 2, batch 64
+   bf16 mode 2 and batch 256 bf16 mode 2 (state_mb the parameters' and
+   moments' float32 bytes, the peak at or above the state, the step's own
+   increment growing with the batch);
+   ``batch_quality_study`` at batches 64 and 256 for 1 epoch of 1,024
+   images; the
+   ``mode_parity`` sweep at seeds 0 1 2 x modes 2 1 on 256 images for 1
+   epoch with 512 validation and generated images, each record a
+   subprocess of this script's ``--quality-child`` (quality's main with
+   its launches counted and checked), one after another and each tried
+   once, then ``combine``.
+   Checks: exit codes and lines, finite values, each trainer's epochs'
+   launches (K5 on every group update; K1-K5 of the CelebA steps and
+   evaluations), one memory step's launches. Logs each part.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result.
-``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp|quality`` runs a part
-of it (for debugging; it then prints no result lines either).
+Every phase ends in a line with its wall on the host clock, and the full
+run prints them all on one line before the result lines. The line before
+the last is {"kernels": [...]}; the last line is {"ok": true, "device":
+{...}}. Without a CUDA device the script exits 1 and prints no result.
+``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp|quality|scripts``
+runs a part of it (``scripts``: phases 11 and 12; for debugging, it then
+prints no result lines either).
 
     python3 chip_smoke.py --ab DIR [--out ab.json]
 
@@ -184,6 +209,7 @@ per run, then a summary line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import math
@@ -1191,18 +1217,20 @@ def read_counters():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def expected_step_launches(cfg, mode, device):
-    """Launches of one train step with do_prior=True, from what the step
-    does: the decoder runs four norm-chain stages and compute_loss one
-    output stage per forward pass; only the pass that differentiates the
-    decoder (the 'ae' group) runs their backward kernels; every group
-    update is one Adam launch. Mode 1 takes one forward pass per group,
-    mode 2 one for all groups."""
+def expected_step_launches(cfg, mode, device, do_prior=True):
+    """Launches of one train step, from what the step does: the decoder
+    runs four norm-chain stages and compute_loss one output stage per
+    forward pass; only the pass that differentiates the decoder (the 'ae'
+    group) runs their backward kernels; every group update is one Adam
+    launch. Mode 1 takes one forward pass per group, mode 2 one for all
+    groups. Without do_prior (the epochs before sg_pretraining's last)
+    only the ae and sigma groups update."""
     import torch
     from ladder_tpu_torch.training.step import group_keys
     if torch.device(device).type != "cuda":
         return dict.fromkeys(kernel_counters(), 0)
-    groups = len(group_keys(cfg))
+    groups = len([g for g in group_keys(cfg)
+                  if do_prior or g in ("ae", "sigma")])
     passes = groups if mode == 1 else 1
     return {"norm_chain_fwd": 4 * passes, "norm_chain_bwd": 4,
             "output_stage_fwd": passes, "output_stage_bwd": 1,
@@ -1728,15 +1756,16 @@ def celeba_config(overrides=CELEBA_OVERRIDES):
     return validate_config(apply_defaults(cfg))
 
 
-def expected_epoch_launches(cfg, mode, steps, evals, sg_overlap, device):
-    """Launches of one CelebA epoch with do_prior=True: its steps (in mode
-    2 on the epoch where prior training and the standard-gaussian
-    pretraining overlap, the prior groups take a second forward pass, of
-    loss_prior, which reaches no decoder backward), and ``evals`` forward
-    passes of eval_step (the test batch and the validation batches), each
-    one decode and one output stage. The GM fits' encodes launch none."""
+def expected_epoch_launches(cfg, mode, steps, evals, sg_overlap, device,
+                            do_prior=True):
+    """Launches of one CelebA epoch: its steps (in mode 2 on the epoch
+    where prior training and the standard-gaussian pretraining overlap,
+    the prior groups take a second forward pass, of loss_prior, which
+    reaches no decoder backward), and ``evals`` forward passes of
+    eval_step (the test batch and the validation batches), each one decode
+    and one output stage. The GM fits' encodes launch none."""
     import torch
-    step = expected_step_launches(cfg, mode, device)
+    step = expected_step_launches(cfg, mode, device, do_prior)
     if torch.device(device).type != "cuda":
         return step
     if mode == 2 and sg_overlap:
@@ -1816,9 +1845,11 @@ def _check_celeba_run(label, trainer, want_epochs, mode, device):
             raise AssertionError(f"{label}: the {name} curve is not finite")
     steps, evals = trainer.n_train_iter(), 1 + trainer.n_val_iter()
     for t in trainer.timings:
-        overlap = t["epoch"] <= cfg["sg_pretraining"]
+        # the trainer's _do_prior: from sg_pretraining's last epoch on
+        do_prior = t["epoch"] > cfg["sg_pretraining"] - 1
+        overlap = do_prior and t["epoch"] <= cfg["sg_pretraining"]
         want = expected_epoch_launches(cfg, mode, steps, evals, overlap,
-                                       device)
+                                       device, do_prior)
         if t["launches"] != want:
             raise AssertionError(f"{label}: epoch {t['epoch']} launched "
                                  f"{t['launches']}, expected {want}")
@@ -4055,14 +4086,17 @@ def eval_fid_on(run, device):
 
 def drive_quality(device, digit_args=QUALITY_DIGIT_ARGS,
                   celeba_args=QUALITY_CELEBA_ARGS,
-                  celeba_overrides=QUALITY_CELEBA_OVERRIDES):
+                  celeba_overrides=QUALITY_CELEBA_OVERRIDES, work=None):
     """Phase 11: (a) the mnist_digit record and eval_fid on its files,
-    (b) the CelebA-128 record; returns both runs and their launches."""
+    (b) the CelebA-128 record; returns both runs and their launches. The
+    records' work directories stay under ``work`` when it is given (phase
+    12 reads them), else in a temporary directory removed after."""
     import shutil
     import tempfile
     import torch
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    keep = work is not None
+    work = work or tempfile.mkdtemp(prefix="chip_smoke_quality_")
     try:
         digit = quality_run("mnist_digit record", digit_args,
                             os.path.join(work, "digit"), device)
@@ -4076,7 +4110,8 @@ def drive_quality(device, digit_args=QUALITY_DIGIT_ARGS,
             os.path.join(work, "celeba"), device)
         celeba.pop("trainer")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(work, ignore_errors=True)
     launches = {k: digit["launches"][k] + celeba["launches"][k]
                 for k in digit["launches"]}
     return {"digit": digit, "celeba": celeba, "launches": launches}
@@ -4110,6 +4145,501 @@ def log_quality(res, smi):
     log(f"  eval_fid --network encoder on the mnist_digit record's files: "
         f"{ev['fid']} in {ev['seconds']:.1f} s, {ev['rel']:.3g} from the "
         f"record's (bound {QUALITY_EVAL_FID_RTOL})")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the scripts of the JAX package that the port carries as modules
+# (verify_real_data, sweep_gmm, memory_report, batch_quality_study,
+# mode_parity), at the published widths, data and epochs cut
+# ---------------------------------------------------------------------------
+
+PHASE12 = ("== phase 12: the scripts through python -m ladder_tpu_torch."
+           "{verify_real_data,sweep_gmm,memory_report,batch_quality_study,"
+           "mode_parity} (published widths, data and epochs cut)")
+# sweep_gmm: codes/mnist_digit_config.json as published (h=256, inner VAE
+# 5x512, 100 MC samples, batch 256) on 2,048 + 512 synthetic images at 10
+# and 50 mixtures, 5 epochs: the fits start after sg_pretraining's first 4,
+# so the 5th ends in the first fast fit (and, as the last, an accurate one)
+SWEEP_GMM_CONFIG = "codes/mnist_digit_config.json"
+SWEEP_GMM_OVERRIDES = {"synthetic_n_train": 2048, "synthetic_n_test": 512}
+SWEEP_GMM_ARGS = ("--mixtures", "10", "50", "--epochs", "5", "--synthetic")
+# memory_report on codes/celeba_config.json (h=512, code 256): (batch,
+# mode, dtype)
+MEMORY_CONFIG = "codes/celeba_config.json"
+MEMORY_CASES = ((64, 1, "float32"), (64, 2, "float32"),
+                (64, 2, "bfloat16"), (256, 2, "bfloat16"))
+# batch_quality_study: the CelebA recipe at batches 64 and 256 (lr x4),
+# bf16 mode 2, 1 epoch of 1,024 images (sg_pretraining's 2 epochs cut to
+# the first: no fit)
+BATCH_STUDY_ARGS = ("--epochs", "1", "--n-train", "1024", "--batches", "64",
+                    "256")
+# mode_parity sweep: both modes at seeds 0 1 2 on 256 images for 1 epoch,
+# the prior trained from the start and fitted accurately after it, 512
+# validation and generated images for a full-rank FID (phase 11 (b)), a
+# 64-image test split; the records one after another, each tried once,
+# then combine
+MODE_PARITY_ARGS = ("--epochs", "1", "--n-train", "256", "--override",
+                    json.dumps(
+                        {"sg_pretraining": 0, "accurate_fit": 1,
+                         "synthetic_n_val": 512, "synthetic_n_test": 64}))
+
+
+class _KeepTrainers:
+    """While on: every JointTrainer that trains is kept (``trainers``)."""
+
+    def __enter__(self):
+        from ladder_tpu_torch.training import trainer as trainer_mod
+        self.cls, self.trainers = trainer_mod.JointTrainer, []
+        self.real = self.cls.train
+        keeper = self
+
+        def train(trainer):
+            keeper.trainers.append(trainer)
+            return keeper.real(trainer)
+
+        self.cls.train = train
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train = self.real
+
+
+def _main_of(module, argv, cwd=None):
+    """module.main(argv) with its output teed and kept; (return value,
+    output, seconds, launches)."""
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if cwd is not None:
+            stack.enter_context(contextlib.chdir(cwd))
+        stack.enter_context(contextlib.redirect_stdout(_Tee(sys.stdout, buf)))
+        rc = module.main(list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0, read_counters()
+
+
+def _write_json(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def verify_check(label, cfg, work, device, want_lines):
+    """verify_real_data check on cfg's data: exit 0 and the OK lines."""
+    from ladder_tpu_torch import verify_real_data
+    path = _write_json(os.path.join(work, f"{label}.json"), cfg)
+    rc, out, seconds, _ = _main_of(verify_real_data,
+                                   ["check", "--config", path, "--device",
+                                    device])
+    got = [ln for ln in out.splitlines() if ln.startswith(("OK", "FAIL"))]
+    if rc != 0 or len(got) != len(want_lines) or not all(
+            g.startswith("OK") and w in g for g, w in zip(got, want_lines)):
+        raise AssertionError(f"verify_real_data check ({label}): exit {rc}, "
+                             f"lines {got}, expected OK lines with "
+                             f"{want_lines}")
+    return {"label": label, "rc": rc, "lines": got, "seconds": seconds}
+
+
+def envelope_reading(result_dir, exp, prior, env):
+    """The envelope's checks, read here from the run's files with numpy:
+    {check: passes}."""
+    r = np.load(os.path.join(result_dir, f"{exp}-result.npz"))
+    tl = np.asarray(r["train_loss"], np.float64)
+    sigma = np.asarray(r["sigma"], np.float64)
+    n_iter = int(r["n_train_iter"])
+    first, last = tl[:n_iter].mean(), tl[-n_iter:].mean()
+    out = {
+        "curves_finite": bool(np.isfinite(tl).all()
+                              and np.isfinite(sigma).all()),
+        "curve_lengths": len(tl) == len(sigma) * n_iter,
+        "train_loss_drop": bool((first - last) / abs(first)
+                                >= env["min_train_loss_drop"]),
+        "final_sigma": bool(sigma[-1] <= env["final_sigma_max"]),
+        "sigma_annealing": bool(np.all(
+            np.diff(sigma) <= env["sigma_monotone_tolerance"]))}
+    if len(r["val_loss"]):
+        vl = np.asarray(r["val_loss"], np.float64)
+        out["val_tracks_train"] = bool(
+            abs(vl[-1] - last) / abs(last)
+            <= env["val_final_within_train_frac"])
+    gm = os.path.join(result_dir, "GM_prior_info.npz")
+    if prior in ("ours", "GMM") and "min_active_mixtures" in env:
+        if os.path.isfile(gm):
+            out["active_mixtures"] = bool(
+                len(np.load(gm)["w_active"]) >= env["min_active_mixtures"])
+        else:
+            out["gm_prior_info"] = False
+    return out
+
+
+def verify_compare(run, work, device):
+    """verify_real_data compare on a quality record's files (copied where
+    the config's directory scheme puts them), held check by check against
+    envelope_reading of the same files; a cut run may fail the envelope,
+    and then the same checks must fail."""
+    import shutil
+    from ladder_tpu_torch import verify_real_data
+    from ladder_tpu_torch.utils.config import process_config
+    cfg = dict(run["config"])
+    cmp_dir = os.path.join(work, "compare_" + cfg["exp_name"])
+    os.makedirs(cmp_dir)
+    path = _write_json(os.path.join(cmp_dir, "config.json"), cfg)
+    with contextlib.chdir(cmp_dir), \
+            contextlib.redirect_stdout(io.StringIO()):
+        result_dir = process_config(path)["result_dir"]
+    os.makedirs(os.path.join(cmp_dir, result_dir))
+    for name in (f"{cfg['exp_name']}-result.npz", "GM_prior_info.npz"):
+        src = os.path.join(cfg["result_dir"], name)
+        if os.path.isfile(src):
+            shutil.copy(src, os.path.join(cmp_dir, result_dir, name))
+    rc, out, seconds, _ = _main_of(verify_real_data,
+                                   ["compare", "--config", path, "--device",
+                                    device], cwd=cmp_dir)
+    printed = {}
+    for ln in out.splitlines():
+        if ln.startswith(("OK  ", "FAIL ")) and ":" in ln:
+            printed[ln[4:].split(":", 1)[0].strip()] = ln.startswith("OK")
+    with open(os.path.join(verify_real_data.ENVELOPES,
+                           f"{cfg['exp_name']}.json")) as f:
+        env = json.load(f)["checks"]
+    mine = envelope_reading(os.path.join(cmp_dir, result_dir),
+                            cfg["exp_name"], cfg["prior"], env)
+    if printed != mine or rc != (0 if all(mine.values()) else 1):
+        raise AssertionError(f"verify_real_data compare on {run['label']}: "
+                             f"exit {rc}, checks {printed}; read here "
+                             f"{mine}")
+    return {"label": run["label"], "rc": rc, "checks": printed,
+            "failing": sorted(k for k, v in printed.items() if not v),
+            "seconds": seconds}
+
+
+def drive_sweep_gmm(work, device, config=SWEEP_GMM_CONFIG,
+                    overrides=SWEEP_GMM_OVERRIDES, args=SWEEP_GMM_ARGS):
+    """sweep_gmm's main on the config with the overrides: its rows, each
+    arm's trainer checked (finite curves, an Adam launch per group update
+    every epoch, the active mixtures its own fast fit's)."""
+    from ladder_tpu_torch import sweep_gmm
+    with open(os.path.join(ROOT, config)) as f:
+        cfg = json.load(f)
+    cfg.update(overrides)
+    path = _write_json(os.path.join(work, "sweep_gmm.json"), cfg)
+    sweep_dir = os.path.join(work, "sweep_gmm")
+    os.makedirs(sweep_dir)
+    with _Recorder(0), _KeepTrainers() as kept:
+        rows, out, seconds, launches = _main_of(
+            sweep_gmm, ["-c", path, *args, "--device", device],
+            cwd=sweep_dir)
+    arms = [int(k) for k in args[args.index("--mixtures") + 1:
+                                 args.index("--epochs")]]
+    line = json.loads([ln for ln in out.splitlines()
+                       if ln.startswith('{"sweep"')][-1])["sweep"]
+    if line != rows or [r["n_mixtures"] for r in rows] != arms \
+            or len(kept.trainers) != len(arms):
+        raise AssertionError(f"sweep_gmm: rows {rows}, line {line}, "
+                             f"{len(kept.trainers)} trainers for {arms}")
+    epochs = tuple(range(1, int(args[args.index("--epochs") + 1]) + 1))
+    for row, trainer in zip(rows, kept.trainers):
+        label = f"sweep_gmm K={row['n_mixtures']}"
+        if not (np.isfinite(row["final_val_loss"])
+                and np.isfinite(row["final_val_elbo"])):
+            raise AssertionError(f"{label}: {row}")
+        w = trainer.gm_fast[0].detach().cpu().numpy()
+        if not 1 <= row["active_mixtures"] == int((w >= 1e-2).sum()) \
+                <= row["n_mixtures"]:
+            raise AssertionError(f"{label}: active_mixtures "
+                                 f"{row['active_mixtures']}, fast fit {w}")
+        if [t["epoch"] for t in trainer.timings] != list(epochs):
+            raise AssertionError(f"{label}: epochs {trainer.timings}")
+        _check_epoch_group_launches(label, trainer)
+    trained = {k: sum(t["launches"][k] for tr in kept.trainers
+                      for t in tr.timings) for k in launches}
+    if trained != launches:
+        raise AssertionError(f"sweep_gmm launched {launches} in all, its "
+                             f"epochs {trained}")
+    return {"rows": rows, "seconds": seconds, "launches": launches,
+            "timings": [tr.timings for tr in kept.trainers]}
+
+
+def drive_memory(device, config=MEMORY_CONFIG, cases=MEMORY_CASES):
+    """memory_report's main per (batch, mode, dtype): state_mb the model's
+    parameters (and each moment the optimiser groups' parameters) in
+    float32, the measured peak at or above the state, the step's own
+    increment positive and, for cases alike but for the batch, growing at
+    least half as fast as the batch (activations scale with it), one
+    step's launches as expected_step_launches says."""
+    import gc
+    import torch
+    from ladder_tpu_torch import memory_report
+    from ladder_tpu_torch.models.builder import make_model
+    from ladder_tpu_torch.training.step import group_keys, group_params
+    from ladder_tpu_torch.utils.config import process_config
+    with contextlib.redirect_stdout(io.StringIO()):
+        base = process_config(os.path.join(ROOT, config))
+    model = make_model(base)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moment = sum(p.numel() for keys in group_keys(base).values()
+                   for p in group_params(model, keys).values())
+    del model
+    cuda = torch.device(device).type == "cuda"
+    out = []
+    for batch, mode, dtype in cases:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        rc, text, seconds, launches = _main_of(memory_report, [
+            "--config", config, "--batch", str(batch), "--fused", str(mode),
+            "--dtype", dtype, "--device", device])
+        rep = json.loads(text.strip().splitlines()[-1])
+        label = f"memory_report batch {batch} mode {mode} {dtype}"
+        state = rep["state_mb"]
+        want_state = {"params": round(n_params * 4 / 1e6, 2),
+                      "adam_m": round(n_moment * 4 / 1e6, 2),
+                      "adam_v": round(n_moment * 4 / 1e6, 2)}
+        want_batch = round(batch * 128 * 128 * 3 / 1e6, 2)
+        if rc != 0 or state != want_state or rep["batch_mb"] != want_batch:
+            raise AssertionError(f"{label}: exit {rc}, state_mb {state} "
+                                 f"(expected {want_state}), batch_mb "
+                                 f"{rep['batch_mb']} ({want_batch})")
+        peak, total = rep["peak_estimate_mb"], sum(state.values())
+        measured = rep["measured_mb"]
+        if cuda and not (peak >= measured["allocated_before"] >= total
+                         and measured["step_increment"] > 0):
+            raise AssertionError(f"{label}: peak {peak} MB, measured "
+                                 f"{measured} MB, state {total} MB")
+        cfg = dict(base, batch_size=batch, fused_train_step=mode,
+                   dtype=dtype)
+        want = expected_step_launches(cfg, mode, device)
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected "
+                                 f"{want}")
+        out.append({"label": label, "report": rep, "seconds": seconds,
+                    "launches": launches})
+    if cuda:
+        grown = {}
+        for (batch, mode, dtype), m in zip(cases, out):
+            grown.setdefault((mode, dtype), []).append(
+                (batch, m["report"]["measured_mb"]["step_increment"]))
+        for (mode, dtype), runs in grown.items():
+            for (b0, inc0), (b1, inc1) in zip(runs, runs[1:]):
+                if not inc1 >= inc0 * (b1 / b0) / 2:
+                    raise AssertionError(
+                        f"memory_report mode {mode} {dtype}: the step adds "
+                        f"{inc0} MB at batch {b0}, {inc1} MB at {b1}")
+    return out
+
+
+def drive_batch_study(work, device, args=BATCH_STUDY_ARGS):
+    """batch_quality_study's main: both batches' records (lr scaled by
+    batch / the first, finite curves of one point an epoch) and each
+    trainer's epochs' launches (_check_celeba_run)."""
+    from ladder_tpu_torch import batch_quality_study
+    out_path = os.path.join(work, "batch_quality_study_torch.json")
+    with _Recorder(0), _KeepTrainers() as kept:
+        payload, _, seconds, launches = _main_of(
+            batch_quality_study,
+            [*args, "--out", out_path, "--device", device])
+    with open(out_path) as f:
+        if json.load(f) != payload:
+            raise AssertionError("batch_quality_study: the file is not the "
+                                 "record main returned")
+    batches = [r["batch"] for r in payload["runs"]]
+    epochs = payload["meta"]["epochs"]
+    for run, trainer in zip(payload["runs"], kept.trainers):
+        label = f"batch_quality_study batch {run['batch']}"
+        if run["lr_scale"] != run["batch"] / batches[0] or any(
+                len(run[k]) != epochs or not np.isfinite(run[k]).all()
+                for k in ("train_neg_elbo", "val_neg_elbo", "sigma")):
+            raise AssertionError(f"{label}: {run}")
+        _check_celeba_run(label, trainer, range(1, epochs + 1),
+                          trainer.config["fused_train_step"], device)
+    trained = {k: sum(t["launches"][k] for tr in kept.trainers
+                      for t in tr.timings) for k in launches}
+    if len(kept.trainers) != len(batches) or trained != launches:
+        raise AssertionError(f"batch_quality_study launched {launches}, "
+                             f"its epochs {trained} "
+                             f"({len(kept.trainers)} trainers)")
+    return {"payload": payload, "seconds": seconds, "launches": launches,
+            "timings": [tr.timings for tr in kept.trainers]}
+
+
+def quality_child(argv):
+    """``--quality-child``: python -m ladder_tpu_torch.quality's main on
+    argv, in this process, every epoch's launches recorded and checked
+    (quality_run's checks); writes them beside the record
+    (_launches_path). mode_parity's sweep runs this in place of the
+    quality module, so that its subprocesses' launches are counted."""
+    from ladder_tpu_torch import quality
+    device = argv[argv.index("--device") + 1]
+    out = argv[argv.index("--out") + 1]
+    reset_counters()
+    with _Recorder(0), _KeepTrainers() as kept:
+        rc = quality.main(argv)
+    _sync(device)
+    launches = read_counters()
+    [trainer] = kept.trainers
+    cfg = trainer.config
+    _check_celeba_run(out, trainer, range(1, cfg["num_epochs"] + 1),
+                      cfg["fused_train_step"], device)
+    with open(out) as f:
+        record = json.load(f)
+    trained = {k: sum(t["launches"][k] for t in trainer.timings)
+               for k in launches}
+    gen = expected_generation_launches(cfg, record["fid_samples"],
+                                       SERVE_BATCH, device)
+    want = {k: trained[k] + gen[k] for k in launches}
+    if launches != want:
+        raise AssertionError(f"{out}: launched {launches}, expected {want}")
+    _write_json(_launches_path(out), {"launches": launches, "rc": rc})
+    return rc
+
+
+def _launches_path(record):
+    """Where quality_child writes a record's launches: beside it, under a
+    name that mode_parity's m*_s*.json does not take."""
+    head, tail = os.path.split(record)
+    return os.path.join(head, "launches_" + tail)
+
+
+def drive_mode_parity(work, device, args=MODE_PARITY_ARGS):
+    """mode_parity's sweep (each record a subprocess of this script's
+    --quality-child, tried once: a failed record fails the phase, its log
+    kept) and combine: every record written with finite scale
+    keys and its launches checked in its process, the combined record with
+    every key of KEYS, both modes and the signed gaps."""
+    from ladder_tpu_torch import mode_parity
+    from ladder_tpu_torch.quality_spread import SCALE_KEYS
+    out_dir = os.path.join(work, "mode_parity")
+    sweep_args = mode_parity.parse_args(["sweep", out_dir, *args,
+                                         "--device", device])
+    t0 = time.perf_counter()
+    rc = mode_parity.sweep(sweep_args, quality_cmd=[
+        sys.executable, os.path.abspath(__file__), "--quality-child"],
+        attempts=1)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        logs = {p: open(p).read()[-2000:] for p in sorted(
+            os.path.join(out_dir, n) for n in os.listdir(out_dir)
+            if n.endswith(".log"))}
+        raise AssertionError(f"mode_parity sweep exited {rc}: {logs}")
+    launches, records = dict.fromkeys(kernel_counters(), 0), {}
+    for seed in mode_parity.SEEDS:
+        for fused in mode_parity.MODES:
+            tag = f"m{fused}_s{seed}"
+            with open(os.path.join(out_dir, f"{tag}.json")) as f:
+                records[tag] = json.load(f)
+            path = _launches_path(os.path.join(out_dir, f"{tag}.json"))
+            with open(path) as f:
+                mine = json.load(f)["launches"]
+            launches = {k: launches[k] + mine[k] for k in launches}
+            bad = {k: records[tag][k] for k in SCALE_KEYS
+                   if not np.isfinite(records[tag][k])}
+            if bad or records[tag]["recipe"]["exp_name"] != "celeba":
+                raise AssertionError(f"mode_parity {tag}: {bad}")
+    combined = os.path.join(work, "MODE_PARITY_torch.json")
+    rc, _, _, _ = _main_of(mode_parity, ["combine", out_dir, "--out",
+                                         combined, "--device", device])
+    with open(combined) as f:
+        rec = json.load(f)
+    if rc != 0 or set(rec["metrics"]) != set(mode_parity.KEYS) or any(
+            len(m[f"mode{k}"]["values"]) != len(mode_parity.SEEDS)
+            for m in rec["metrics"].values() for k in (1, 2)):
+        raise AssertionError(f"mode_parity combine: exit {rc}, {rec}")
+    return {"records": records, "combined": rec, "seconds": seconds,
+            "launches": launches}
+
+
+def drive_scripts(device, quality_res, work, sweep_gmm_kw=None,
+                  memory_kw=None, batch_kw=None, mode_parity_kw=None):
+    """Phase 12 over phase 11's records (their work directories under
+    ``work``); the ``*_kw`` reach each part's drive_* function (the CPU
+    rehearsal shrinks them). Returns every part's results and the
+    phase's launches."""
+    from ladder_tpu_torch.data.mnist import synthetic_mnist
+    digit, celeba = quality_res["digit"], quality_res["celeba"]
+    res = {}
+    # verify_real_data check: phase 11 (a)'s synthetic MNIST set written
+    # as mnist.npz, and phase 11 (b)'s CelebA TFRecords
+    dcfg = digit["config"]
+    mnist_dir = os.path.join(work, "mnist_data")
+    os.makedirs(mnist_dir)
+    (xtr, ytr), (xte, yte) = synthetic_mnist(
+        n_train=dcfg["synthetic_n_train"], n_test=dcfg["synthetic_n_test"],
+        seed=dcfg["seed"])
+    np.savez(os.path.join(mnist_dir, "mnist.npz"), x_train=xtr, y_train=ytr,
+             x_test=xte, y_test=yte)
+    ccfg = celeba["config"]
+    res["check"] = [
+        verify_check("mnist_digit", dict(dcfg, data_dir=mnist_dir), work,
+                     device, [f"train {xtr.shape}"]),
+        verify_check("celeba", ccfg, work, device, [
+            f"celebA_{s}.tfrecords: {ccfg[f'synthetic_n_{s}']} records, "
+            "first decodes to (128, 128, 3) uint8"
+            for s in ("train", "val", "test")])]
+    res["compare"] = verify_compare(digit, work, device)
+    res["sweep_gmm"] = drive_sweep_gmm(work, device,
+                                       **(sweep_gmm_kw or {}))
+    _free(device)
+    res["memory"] = drive_memory(device, **(memory_kw or {}))
+    _free(device)
+    res["batch_study"] = drive_batch_study(work, device,
+                                           **(batch_kw or {}))
+    _free(device)
+    res["mode_parity"] = drive_mode_parity(work, device,
+                                           **(mode_parity_kw or {}))
+    parts = (res["sweep_gmm"]["launches"], res["batch_study"]["launches"],
+             res["mode_parity"]["launches"],
+             *(m["launches"] for m in res["memory"]))
+    res["launches"] = {k: sum(p[k] for p in parts) for k in parts[0]}
+    return res
+
+
+def _free(device):
+    import gc
+    import torch
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def log_scripts(res, smi):
+    for c in res["check"]:
+        log(f"  verify_real_data check ({c['label']}): exit {c['rc']} in "
+            f"{c['seconds']:.2f} s: " + " | ".join(c["lines"]))
+    c = res["compare"]
+    log(f"  verify_real_data compare on the {c['label']}'s files: exit "
+        f"{c['rc']}, checks {c['checks']} (failing {c['failing']}; the "
+        "phase's own reading agrees check by check)")
+    s = res["sweep_gmm"]
+    log(f"  sweep_gmm on {smi}: {s['seconds']:.1f} s, launches "
+        f"{s['launches']}")
+    for row, timings in zip(s["rows"], s["timings"]):
+        steps = ", ".join(f"{t['train']['step_ms']:.1f}" for t in timings)
+        log(f"    {row}; step ms by epoch {steps}")
+    for m in res["memory"]:
+        rep = m["report"]
+        log(f"  {m['label']} on {smi}: state_mb {rep['state_mb']}, batch_mb "
+            f"{rep['batch_mb']}, measured_mb {rep['measured_mb']} "
+            f"({m['seconds']:.1f} s; launches {m['launches']})")
+    b = res["batch_study"]
+    log(f"  batch_quality_study on {smi}: {b['seconds']:.1f} s, launches "
+        f"{b['launches']}")
+    for run in b["payload"]["runs"]:
+        log(f"    batch {run['batch']}: lr x{run['lr_scale']}, train "
+            f"{run['train_neg_elbo']}, val {run['val_neg_elbo']}, sigma "
+            f"{run['sigma']}, wall {run['wall_s']} s")
+    p = res["mode_parity"]
+    log(f"  mode_parity sweep + combine on {smi}: {p['seconds']:.1f} s for "
+        f"{len(p['records'])} records (one after another), launches "
+        f"{p['launches']}")
+    for tag, rec in sorted(p["records"].items()):
+        log(f"    {tag}: train_wall_s {rec['train_wall_s']}, val neg-ELBO "
+            f"{rec['final_val_neg_elbo']:.1f}, sigma_final "
+            f"{rec['sigma_final']:.4f}, active {rec['active_mixtures']}, "
+            f"FID {rec['encoder_fid_generated_vs_test']:.3f}")
+    log("    combined gaps (mode2 - mode1): " + ", ".join(
+        f"{k} {m['mode2_minus_mode1_mean']:.4g}"
+        for k, m in p["combined"]["metrics"].items()))
+    log(f"  phase 12 launches {res['launches']}")
 
 
 def times_only(package, cfg, peaks):
@@ -4161,7 +4691,66 @@ def ab(other, out_path=None):
     return runs
 
 
+def run_scripts_phases(device, smi, walls):
+    """Phase 11, its records kept, then phase 12 over them; each phase's
+    launches (every kernel launched at least once in each)."""
+    import shutil
+    import tempfile
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_scripts_")
+    try:
+        walls.start(11)
+        log(PHASE11)
+        quality = drive_quality(device, work=os.path.join(work, "quality"))
+        log_quality(quality, smi)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        walls.start(12)
+        log(PHASE12)
+        scripts = drive_scripts(device, quality, work)
+        log_scripts(scripts, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cuda = torch.device(device).type == "cuda"
+    for n, total in ((11, quality["launches"]), (12, scripts["launches"])):
+        missing = [k for k, v in total.items() if v <= 0]
+        if cuda and missing:
+            raise AssertionError(f"phase {n} never launched {missing}")
+    return quality["launches"], scripts["launches"]
+
+
+class _Walls:
+    """Each phase's wall on the host clock: start(n) ends the phase before
+    it, and each end logs a line of its own."""
+
+    def __init__(self):
+        self.walls, self.cur = {}, None
+
+    def start(self, n):
+        self.stop()
+        self.cur = (n, time.perf_counter())
+
+    def stop(self):
+        if self.cur is not None:
+            n, t0 = self.cur
+            self.walls[n] = time.perf_counter() - t0
+            self.cur = None
+            log(f"== phase {n} wall: {self.walls[n]:.1f} s (host clock)")
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--quality-child"]:
+        os.chdir(ROOT)
+        return quality_child(argv[1:])
+    walls = _Walls()
+    try:
+        return _main(argv, walls)
+    finally:
+        walls.stop()
+
+
+def _main(argv, walls):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
@@ -4171,7 +4760,8 @@ def main(argv=None):
     parser.add_argument("--only", choices=("build", "kernels", "serving",
                                            "training", "mnist", "celeba",
                                            "interp", "utils", "parallel",
-                                           "tp", "quality", "times"))
+                                           "tp", "quality", "scripts",
+                                           "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -4196,6 +4786,7 @@ def main(argv=None):
 
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
+    walls.start(1)
     log("== phase 1: card and build")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
@@ -4222,6 +4813,7 @@ def main(argv=None):
         return 0
 
     if only in (None, "kernels"):
+        walls.start(2)
         log("== phase 2: kernels against their plain versions")
         flush = l2_flusher()
         with float32_exact():  # the plain versions' products in full float32
@@ -4237,36 +4829,47 @@ def main(argv=None):
             return 0
 
     if only == "mnist":
+        walls.start(5)
         log("== phase 5: training the pretrained mnist_digit model through "
             "the trainer")
         log_mnist(drive_mnist("cuda"), smi)
         return 0
     if only == "celeba":
+        walls.start(6)
         log(PHASE6)
         log_celeba(drive_celeba("cuda"), smi)
         return 0
     if only == "interp":
+        walls.start(7)
         log(PHASE7)
         interp = drive_interp("cuda")
         log_interp(interp, drive_other_trainers("cuda"), smi)
         return 0
     if only == "utils":
+        walls.start(8)
         log(PHASE8)
         log_utils(drive_utils("cuda"), smi)
         return 0
     if only == "parallel":
+        walls.start(9)
         log(PHASE9)
         log_parallel(drive_parallel("cuda"), smi)
         return 0
     if only == "tp":
+        walls.start(10)
         log(PHASE10)
         log_tp(drive_tp("cuda", peaks=peaks, backend=args.tp_backend), smi)
         return 0
     if only == "quality":
+        walls.start(11)
         log(PHASE11)
         log_quality(drive_quality("cuda"), smi)
         return 0
+    if only == "scripts":
+        run_scripts_phases("cuda", smi, walls)
+        return 0
 
+    walls.start(3)
     log("== phase 3: serving the pretrained CelebA-128 'ours' model")
     reset_counters()
     run = drive_serving(cfg, "cuda")
@@ -4291,6 +4894,7 @@ def main(argv=None):
         if only:
             return 0
 
+    walls.start(4)
     log("== phase 4: training the same model on the card")
     images = eng.generate(TRAIN_BATCH, seed=5)  # NHWC float32 in [0, 1]
     flax_params = eng.model.flax_params()
@@ -4332,6 +4936,7 @@ def main(argv=None):
     del train, eng, run
     torch.cuda.empty_cache()
 
+    walls.start(5)
     log("== phase 5: training the pretrained mnist_digit model through the "
         "trainer")
     mnist = drive_mnist("cuda")
@@ -4351,6 +4956,7 @@ def main(argv=None):
     # phase 6's synthetic CelebA TFRecords, read again by phase 7
     celeba_data = tempfile.mkdtemp(prefix="chip_smoke_celeba_data_")
     try:
+        walls.start(6)
         log(PHASE6)
         celeba = drive_celeba("cuda", data_dir=celeba_data)
         log_celeba(celeba, smi)
@@ -4365,6 +4971,7 @@ def main(argv=None):
         del celeba
         torch.cuda.empty_cache()
 
+        walls.start(7)
         log(PHASE7)
         interp = drive_interp("cuda", data_dir=celeba_data)
     finally:
@@ -4383,6 +4990,7 @@ def main(argv=None):
     del interp, others
     torch.cuda.empty_cache()
 
+    walls.start(8)
     log(PHASE8)
     utils = drive_utils("cuda")
     log_utils(utils, smi)
@@ -4395,6 +5003,7 @@ def main(argv=None):
     del utils
     torch.cuda.empty_cache()
 
+    walls.start(9)
     log(PHASE9)
     parallel = drive_parallel("cuda")
     log_parallel(parallel, smi)
@@ -4405,6 +5014,7 @@ def main(argv=None):
     del parallel
     torch.cuda.empty_cache()
 
+    walls.start(10)
     log(PHASE10)
     tp = drive_tp("cuda", peaks=peaks)
     log_tp(tp, smi)
@@ -4416,19 +5026,16 @@ def main(argv=None):
     del tp
     torch.cuda.empty_cache()
 
-    log(PHASE11)
-    quality = drive_quality("cuda")
-    log_quality(quality, smi)
-    quality_total = quality["launches"]
-    missing = [k for k, v in quality_total.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"phase 11 never launched {missing}")
-    del quality
+    quality_total, scripts_total = run_scripts_phases("cuda", smi, walls)
+    walls.stop()
+    log("phase walls on the host clock: " + ", ".join(
+        f"{n} {w:.1f} s" for n, w in walls.walls.items())
+        + f"; {sum(walls.walls.values()):.1f} s in all")
 
     total = {k: serving[k] + training[k] + mnist_launches[k]
              + celeba_launches[k] + interp_launches[k] + prior_launches[k]
              + utils_launches[k] + parallel_total[k] + tp_total[k]
-             + quality_total[k] for k in serving}
+             + quality_total[k] + scripts_total[k] for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -4453,6 +5060,7 @@ def main(argv=None):
         entry["launches_parallel"] = parallel_total[entry["name"]]
         entry["launches_tp"] = tp_total[entry["name"]]
         entry["launches_quality"] = quality_total[entry["name"]]
+        entry["launches_scripts"] = scripts_total[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -271,3 +271,25 @@ def test_package_imports_as_on_the_card():
     for name in ("serving.export", "utils.fid", "utils.tf1_import",
                  "utils.plotting"):
         assert f"ladder_tpu_torch.{name}" in proc.stdout
+
+
+def test_sources_cover_the_scripts_slice():
+    """The last scripts of the JAX package, each a module of the port run
+    with python -m, naming its counterpart, on the card by default."""
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name, scripts in (
+            ("verify_real_data.py", ("verify_real_data.py",)),
+            ("mode_parity.py", ("mode_parity_celeba.sh",
+                                "mode_parity_combine.py")),
+            ("sweep_gmm.py", ("sweep_gmm.py",)),
+            ("batch_quality_study.py", ("batch_quality_study.py",)),
+            ("memory_report.py", ("memory_report.py",))):
+        assert f"ladder_tpu_torch/{name}" in covered
+        text = (ROOT / "ladder_tpu_torch" / name).read_text()
+        assert 'if __name__ == "__main__":' in text
+        assert '"--device", default="cuda"' in text
+        for script in scripts:
+            assert (ROOT / "scripts" / script).is_file()
+            assert f"scripts/{script}" in text  # names its counterpart
+        assert not {"scripts", "ladder_tpu", "jax"}.intersection(
+            _imported_roots(ROOT / "ladder_tpu_torch" / name))
