@@ -187,12 +187,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    Checks: exit codes and lines, finite values, each trainer's epochs'
    launches (K5 on every group update; K1-K5 of the CelebA steps and
    evaluations), one memory step's launches. Logs each part.
+13. The profilers, as the port's modules, in this process at the
+   published widths (CelebA-128, h=512, batch 64): ``profile_step`` at its
+   defaults (bf16 mode 2, 8 traced steps after 3) and in float32 mode 1
+   (4 steps), each top-15 kernel table printed; ``conv_breakdown`` in bf16
+   and float32; ``bench_input_pipeline`` with ``--step-ms`` the bf16
+   profile's step wall; ``stream_trace`` at its defaults (6 + 40 streamed
+   steps), its trace read back by ``profile_step``'s report. Checks: K1-K5
+   in each trace at ``expected_step_launches`` a step and counted by the
+   wrappers at it for every step taken, all 14 conv rows finite and
+   positive, the input record's keys and rates, the stream record's keys
+   and its wall a step at or above the device's busy time.
 
 Every phase ends in a line with its wall on the host clock, and the full
 run prints them all on one line before the result lines. The line before
 the last is {"kernels": [...]}; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device the script exits 1 and prints no result.
-``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp|quality|scripts``
+``--only build|kernels|serving|training|mnist|celeba|interp|utils|parallel|tp|quality|scripts|profilers``
 runs a part of it (``scripts``: phases 11 and 12; for debugging, it then
 prints no result lines either).
 
@@ -4719,6 +4730,190 @@ def run_scripts_phases(device, smi, walls):
     return quality["launches"], scripts["launches"]
 
 
+PHASE13 = ("== phase 13: the profilers through python -m ladder_tpu_torch."
+           "{profile_step,conv_breakdown,bench_input_pipeline,stream_trace} "
+           "(CelebA-128 at its published widths)")
+# the five kernels' names in a trace (csrc/*.cu): each wrapper launches its
+# kernel once a call
+KERNEL_TRACE_NAMES = {
+    "norm_chain_fwd": r"\bnorm_chain_fwd_(kernel|regs|ring)\b",
+    "norm_chain_bwd": r"\bnorm_chain_bwd_kernel\b",
+    "output_stage_fwd": r"\boutput_stage_fwd_kernel\b",
+    "output_stage_bwd": r"\boutput_stage_bwd_kernel\b",
+    "adam_update": r"\badam_kernel\b"}
+# profile_step's runs: its defaults, then float32 mode 1 at 4 steps
+PROFILE_RUNS = (("bf16 mode 2", ()),
+                ("float32 mode 1", ("--dtype", "float32", "--fused", "1",
+                                    "--steps", "4")))
+STREAM_KEYS = ("what", "batch", "steps", "batch_mb", "wall_step_ms",
+               "device_busy_ms", "device_idle_ms", "transfer_ms", "link_mbs",
+               "serial_bound_ms", "overlap_bound_ms", "overlap_efficiency",
+               "img_per_s")
+
+
+def trace_launches(rows):
+    """Launches of each of the five kernels in a profile_step report's
+    rows (name, ms a step, launches a step, launches)."""
+    import re
+    return {k: sum(n for name, _, _, n in rows if re.search(pat, name))
+            for k, pat in KERNEL_TRACE_NAMES.items()}
+
+
+def check_launches(label, rows, counted, want, traced, taken):
+    """The trace holds ``traced`` steps of ``want`` launches of every
+    kernel, the wrappers counted ``taken`` steps of them; raises
+    otherwise."""
+    in_trace = trace_launches(rows)
+    for k, per_step in want.items():
+        if per_step <= 0:
+            raise AssertionError(f"{label}: {k} expected no launch a step")
+        if in_trace[k] != traced * per_step:
+            raise AssertionError(f"{label}: {in_trace[k]} {k} kernels in the "
+                                 f"trace, {traced} steps x {per_step} "
+                                 "expected")
+        if counted[k] != taken * per_step:
+            raise AssertionError(f"{label}: {k} counted {counted[k]}, "
+                                 f"{taken} steps x {per_step} expected")
+    return in_trace
+
+
+def check_conv_rows(label, rows, n=14):
+    """conv_breakdown's rows: n of them, every time finite and positive."""
+    import math
+    if len(rows) != n:
+        raise AssertionError(f"{label}: {len(rows)} conv rows, {n} expected")
+    for r in rows:
+        if not all(math.isfinite(t) and t > 0 for t in (r[5], r[7], r[9])):
+            raise AssertionError(f"{label}: {r[0]} timed {r[5:]}")
+
+
+def check_stream_record(rec):
+    """The stream record's keys, in the JAX script's order, and a wall a
+    step no shorter than the device's busy time."""
+    if tuple(rec) != STREAM_KEYS:
+        raise AssertionError(f"stream record keys {list(rec)}")
+    if not rec["wall_step_ms"] >= rec["device_busy_ms"] > 0:
+        raise AssertionError(f"stream wall {rec['wall_step_ms']} ms a step "
+                             f"under its busy {rec['device_busy_ms']} ms")
+
+
+def drive_profilers(work):
+    """Phase 13 (see the module docstring) on the card; every check of the
+    phase. Returns what it measured, with the wrappers' launches of all
+    its runs under 'launches'."""
+    import torch
+    from ladder_tpu_torch import (bench_input_pipeline, conv_breakdown,
+                                  profile_step, stream_trace)
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    res = {"profile": {}, "conv": {}, "seconds": {}}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        res["seconds"][label] = time.perf_counter() - t0
+        return out
+
+    def counted(label, fn):
+        reset_counters()
+        out = timed(label, fn)
+        got = read_counters()
+        for k in total:
+            total[k] += got[k]
+        return out, got
+
+    for i, (label, argv) in enumerate(PROFILE_RUNS):
+        log(f"  profile_step {label}:")
+        args = profile_step.parse_args(list(argv) + [
+            "--top", "15", "--logdir", os.path.join(work, f"profile{i}")])
+        summary, got = counted(f"profile_step {label} capture",
+                               lambda: profile_step.capture(args))
+        rows = timed(f"profile_step {label} report",
+                     lambda: profile_step.report(args))
+        want = expected_step_launches(profile_step.build_config(args),
+                                      args.fused, "cuda")
+        check_launches(f"profile_step {label}", rows, got, want, args.steps,
+                       args.steps + profile_step.WARMUP)
+        res["profile"][label] = dict(
+            rows=rows, summary=summary, launches=got, want=want,
+            step_ms=summary["wall_ms"] / summary["steps"])
+        torch.cuda.empty_cache()
+
+    for dtype in ("bfloat16", "float32"):
+        log(f"  conv_breakdown {dtype}:")
+        rows = timed(f"conv_breakdown {dtype}",
+                     lambda: conv_breakdown.main(["--dtype", dtype]))
+        check_conv_rows(f"conv_breakdown {dtype}", rows)
+        res["conv"][dtype] = rows
+    torch.cuda.empty_cache()
+
+    step_ms = res["profile"][PROFILE_RUNS[0][0]]["step_ms"]
+    log(f"  bench_input_pipeline --step-ms {step_ms:.2f} (the bf16 "
+        "profile's step wall):")
+    rec = timed("bench_input_pipeline", lambda: bench_input_pipeline.main(
+        ["--step-ms", f"{step_ms:.2f}"]))
+    for key in ("python", "native"):
+        if not min(rec[key].values()) > 0:
+            raise AssertionError(f"input pipeline {key}: {rec[key]}")
+    if rec["device_ceiling_img_s"] is None:
+        raise AssertionError("input pipeline: no device-side keys")
+    res["input"] = rec
+
+    log("  stream_trace:")
+    argv = ["--out", os.path.join(work, "STREAM_torch.json"), "--logdir",
+            os.path.join(work, "stream")]
+    sargs = stream_trace.parse_args(argv)
+    _, got = counted("stream_trace", lambda: stream_trace.main(argv))
+    with open(sargs.out) as f:
+        stream = json.load(f)
+    check_stream_record(stream)
+    rows = timed("stream_trace report", lambda: profile_step.report(
+        profile_step.parse_args(["--report-only", "--top", "15", "--steps",
+                                 str(stream["steps"]), "--logdir",
+                                 sargs.logdir])))
+    want = expected_step_launches(stream_trace.build_config(sargs), 2, "cuda")
+    check_launches("stream_trace", rows, got, want, stream["steps"],
+                   sargs.steps + sargs.warmup)
+    res["stream"] = dict(record=stream, launches=got, want=want)
+    torch.cuda.empty_cache()
+    res["launches"] = total
+    return res
+
+
+def log_profilers(res, smi):
+    for label, p in res["profile"].items():
+        log(f"  profile_step {label} on {smi}: {p['step_ms']:.2f} ms a step "
+            f"(traced wall over {p['summary']['steps']} steps), device busy "
+            f"{p['summary']['device_busy_ms'] / p['summary']['steps']:.2f} "
+            f"ms, idle share {p['summary']['idle_share']:.1%}; launches "
+            f"{p['launches']} ({p['want']} a step)")
+    for dtype, rows in res["conv"].items():
+        log(f"  conv_breakdown {dtype} on {smi}: fwd "
+            f"{sum(r[5] for r in rows):.2f} ms, dgrad "
+            f"{sum(r[7] for r in rows):.2f} ms, wgrad "
+            f"{sum(r[9] for r in rows):.2f} ms over the 14 convs")
+    log(f"  input pipeline on the card's host: {json.dumps(res['input'])}")
+    log(f"  stream on {smi}: {json.dumps(res['stream']['record'])}; "
+        f"launches {res['stream']['launches']}")
+    log("  seconds on the host clock: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in res["seconds"].items()))
+
+
+def run_profilers_phase(smi, walls):
+    """Phase 13; its launches."""
+    import shutil
+    import tempfile
+    walls.start(13)
+    log(PHASE13)
+    work = tempfile.mkdtemp(prefix="chip_smoke_profilers_")
+    try:
+        res = drive_profilers(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log_profilers(res, smi)
+    return res["launches"]
+
+
 class _Walls:
     """Each phase's wall on the host clock: start(n) ends the phase before
     it, and each end logs a line of its own."""
@@ -4761,7 +4956,7 @@ def _main(argv, walls):
                                            "training", "mnist", "celeba",
                                            "interp", "utils", "parallel",
                                            "tp", "quality", "scripts",
-                                           "times"))
+                                           "profilers", "times"))
     parser.add_argument("--package", default=ROOT,
                         help="checkout whose ladder_tpu_torch is imported")
     parser.add_argument("--ab", metavar="DIR",
@@ -4867,6 +5062,9 @@ def _main(argv, walls):
         return 0
     if only == "scripts":
         run_scripts_phases("cuda", smi, walls)
+        return 0
+    if only == "profilers":
+        run_profilers_phase(smi, walls)
         return 0
 
     walls.start(3)
@@ -5027,6 +5225,8 @@ def _main(argv, walls):
     torch.cuda.empty_cache()
 
     quality_total, scripts_total = run_scripts_phases("cuda", smi, walls)
+    torch.cuda.empty_cache()
+    profilers_total = run_profilers_phase(smi, walls)
     walls.stop()
     log("phase walls on the host clock: " + ", ".join(
         f"{n} {w:.1f} s" for n, w in walls.walls.items())
@@ -5035,7 +5235,8 @@ def _main(argv, walls):
     total = {k: serving[k] + training[k] + mnist_launches[k]
              + celeba_launches[k] + interp_launches[k] + prior_launches[k]
              + utils_launches[k] + parallel_total[k] + tp_total[k]
-             + quality_total[k] + scripts_total[k] for k in serving}
+             + quality_total[k] + scripts_total[k] + profilers_total[k]
+             for k in serving}
     kernels = [
         dict(norm_chain_entry(cases, total["norm_chain_fwd"]),
              other_cases=other_cases),
@@ -5061,6 +5262,7 @@ def _main(argv, walls):
         entry["launches_tp"] = tp_total[entry["name"]]
         entry["launches_quality"] = quality_total[entry["name"]]
         entry["launches_scripts"] = scripts_total[entry["name"]]
+        entry["launches_profilers"] = profilers_total[entry["name"]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """chip_smoke.py's phase 10 (the (data, model) mesh, the engine's
 mesh_devices) rehearsed on the CPU at a tiny size, in a file of its own
-so that it runs beside tests/test_torch_chip_smoke.py's rehearsals."""
+so that it runs beside the other phases' rehearsals
+(tests/test_torch_chip_smoke_<phase>.py)."""
 
 import json
 
 import numpy as np
 
 import chip_smoke
-from tests.test_torch_chip_smoke import _celeba_groups, _demo_cfg, _groups
+from tests.torch_chip_smoke_helpers import _celeba_groups, _demo_cfg, _groups
 
 
 def test_tp_phase_rehearsal_on_cpu(tmp_path, capsys):

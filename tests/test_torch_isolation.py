@@ -293,3 +293,20 @@ def test_sources_cover_the_scripts_slice():
             assert f"scripts/{script}" in text  # names its counterpart
         assert not {"scripts", "ladder_tpu", "jax"}.intersection(
             _imported_roots(ROOT / "ladder_tpu_torch" / name))
+
+
+def test_sources_cover_the_profilers_slice():
+    """The JAX package's four profilers, each a module of the port run
+    with python -m, naming its counterpart, on the card by default."""
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for name in ("profile_step", "conv_breakdown", "bench_input_pipeline",
+                 "stream_trace"):
+        path = ROOT / "ladder_tpu_torch" / f"{name}.py"
+        assert str(path.relative_to(ROOT)) in covered
+        text = path.read_text()
+        assert 'if __name__ == "__main__":' in text
+        assert '"--device", default="cuda"' in text
+        assert (ROOT / "scripts" / f"{name}.py").is_file()
+        assert f"scripts/{name}.py" in text  # names its counterpart
+        assert not {"scripts", "ladder_tpu", "jax"}.intersection(
+            _imported_roots(path))
