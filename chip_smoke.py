@@ -32,6 +32,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU over the same weights and batch, a bfloat16 engine within a band of
    float32, and one HTTP round trip through the micro-batching server with
    a drain. Then per-path latencies and a profile of one reconstruction.
+   Then ``python -m ladder_tpu_torch.bench_serving``'s main twice at the
+   published widths (codes/celeba_config.json: h=512, batch 64, random
+   init, as the JAX script allows): its defaults (bf16, 50 iterations)
+   and float32 at 20. Checks: the line's keys are the JAX script's, every
+   rate finite and positive, and the norm-chain forward launched exactly
+   4 times per decoding device call (counted by wrapping the engine
+   module's ``run_path`` and the engine's ``_render`` here).
 4. Training: the same model and weights through ladder_tpu_torch's train
    step on the card, batch 64, float32 with TF32 off, a few steps of the
    sequential mode and of the single-pass mode: finite metrics, every
@@ -179,7 +186,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    increment growing with the batch);
    ``batch_quality_study`` at batches 64 and 256 for 1 epoch of 1,024
    images; the
-   ``mode_parity`` sweep at seeds 0 1 2 x modes 2 1 on 256 images for 1
+   ``mode_parity`` sweep at seeds 0 1 2 x modes 2 1 on 128 images for 1
    epoch with 512 validation and generated images, each record a
    subprocess of this script's ``--quality-child`` (quality's main with
    its launches counted and checked), one after another and each tried
@@ -363,6 +370,19 @@ FID_RTOL = 1e-4
 # GM_prior_info.npz's full weights sum to one (float32 sums of 50 terms)
 GM_WEIGHT_SUM_TOL = 1e-4
 SERVE_BATCH = 64
+# bench_serving at the published widths: the JAX script's config and batch,
+# its defaults (bf16, 50 iterations) and float32 at 20 iterations
+BENCH_SERVING_CONFIG = "codes/celeba_config.json"
+BENCH_SERVING_RUNS = ((), ("--dtype", "float32", "--iters", "20"))
+# scripts/bench_serving.py's line, key for key ('generate_img_s' only
+# with a GM fit on disk, after 'encode_device_img_s')
+BENCH_SERVING_KEYS = ("metric", "batch", "dtype", "buckets",
+                      "reconstruct_img_s", "decode_img_s", "encode_img_s",
+                      "reconstruct_device_img_s", "decode_device_img_s",
+                      "encode_device_img_s", "bucket_latency_ms",
+                      "concurrent_1img_req_s")
+# the serving paths that decode (serving/engine.py:run_path)
+DECODING_PATHS = ("reconstruct", "decode", "decode_representation")
 # The decoder's style stages at batch 64: (NCHW shape, how many of the four
 # run at it per decode).
 NORM_CHAIN_STAGES = (((64, 512, 2, 2), 2), ((64, 256, 16, 16), 1),
@@ -1203,6 +1223,81 @@ def profile_reconstruct(eng, x):
     eng.reconstruct(x)
     profile_device("one reconstruct[64]", lambda: eng.reconstruct(x),
                    marks=("norm_chain",))
+
+
+def _bench_rates(line):
+    """Every rate and latency of a bench_serving line, by name."""
+    c = line["concurrent_1img_req_s"]
+    return {**{k: v for k, v in line.items() if k.endswith("_img_s")},
+            **line["bucket_latency_ms"],
+            "direct": c["direct"], "micro_batched": c["micro_batched"]}
+
+
+def drive_bench_serving(device, runs=BENCH_SERVING_RUNS,
+                        config=BENCH_SERVING_CONFIG):
+    """bench_serving's main once per run's arguments; every check of the
+    part. The decoding device calls are counted by wrapping the engine
+    module's run_path (the engine's paths and bench_serving's device rates
+    call it) and InferenceEngine._render (generate) here; the norm-chain
+    forward must launch 4 times per such call on a CUDA device."""
+    import torch
+    from ladder_tpu_torch import bench_serving
+    from ladder_tpu_torch.ops.norm_chain import fused_instnorm_style_lrelu
+    from ladder_tpu_torch.serving import engine as serving
+
+    per_decode = 4 if torch.device(device).type == "cuda" else 0
+    counter = fused_instnorm_style_lrelu
+    run_path, render = serving.run_path, serving.InferenceEngine._render
+    decodes = [0]
+
+    def counted_path(model, name, x):
+        decodes[0] += name in DECODING_PATHS
+        return run_path(model, name, x)
+
+    def counted_render(self, z):
+        decodes[0] += 1
+        return render(self, z)
+
+    serving.run_path = counted_path
+    serving.InferenceEngine._render = counted_render
+    results = []
+    try:
+        for extra in runs:
+            decodes[0], before = 0, counter.launches
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):  # process_config's dump
+                record = bench_serving.main(
+                    ["--config", config, *extra, "--device", device])
+            seconds = time.perf_counter() - t0
+            line = [ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("{")][-1]
+            launches = counter.launches - before
+            label = " ".join(extra) or "defaults"
+            want = list(BENCH_SERVING_KEYS)
+            if "generate_img_s" in record:
+                want.insert(want.index("bucket_latency_ms"), "generate_img_s")
+            rates = _bench_rates(record)
+            bad = {k: v for k, v in rates.items()
+                   if not (math.isfinite(v) and v > 0)}
+            if json.loads(line) != record or list(record) != want:
+                raise AssertionError(f"bench_serving ({label}): keys "
+                                     f"{list(record)}, expected {want}")
+            if bad or record["concurrent_1img_req_s"]["requests"] != 129:
+                raise AssertionError(f"bench_serving ({label}): {bad}, "
+                                     f"{record['concurrent_1img_req_s']}")
+            if launches != per_decode * decodes[0] or decodes[0] <= 0:
+                raise AssertionError(
+                    f"bench_serving ({label}): {launches} norm-chain "
+                    f"launches over {decodes[0]} decoding device calls, "
+                    f"expected {per_decode} each")
+            results.append({"label": label, "line": line, "record": record,
+                            "seconds": seconds, "decodes": decodes[0],
+                            "launches": launches})
+    finally:
+        serving.run_path = run_path
+        serving.InferenceEngine._render = render
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -4184,12 +4279,12 @@ MEMORY_CASES = ((64, 1, "float32"), (64, 2, "float32"),
 # the first: no fit)
 BATCH_STUDY_ARGS = ("--epochs", "1", "--n-train", "1024", "--batches", "64",
                     "256")
-# mode_parity sweep: both modes at seeds 0 1 2 on 256 images for 1 epoch,
+# mode_parity sweep: both modes at seeds 0 1 2 on 128 images for 1 epoch,
 # the prior trained from the start and fitted accurately after it, 512
 # validation and generated images for a full-rank FID (phase 11 (b)), a
 # 64-image test split; the records one after another, each tried once,
 # then combine
-MODE_PARITY_ARGS = ("--epochs", "1", "--n-train", "256", "--override",
+MODE_PARITY_ARGS = ("--epochs", "1", "--n-train", "128", "--override",
                     json.dumps(
                         {"sg_pretraining": 0, "accurate_fit": 1,
                          "synthetic_n_val": 512, "synthetic_n_test": 64}))
@@ -5089,6 +5184,14 @@ def _main(argv, walls):
             log(f"  median {label} latency at batch {SERVE_BATCH} on {smi}: "
                 + ", ".join(f"{k} {v:.2f} ms" for k, v in lat.items()))
         profile_reconstruct(eng, run["x"])
+        reset_counters()
+        for b in drive_bench_serving("cuda"):
+            log(f"  bench_serving ({b['label']}) on {smi}: {b['seconds']:.1f}"
+                f" s, {b['decodes']} decoding device calls, "
+                f"{b['launches']} norm-chain launches")
+            log(f"    {b['line']}")
+        serving = {k: serving[k] + v for k, v in read_counters().items()}
+        torch.cuda.empty_cache()
         if only:
             return 0
 

@@ -310,3 +310,18 @@ def test_sources_cover_the_profilers_slice():
         assert f"scripts/{name}.py" in text  # names its counterpart
         assert not {"scripts", "ladder_tpu", "jax"}.intersection(
             _imported_roots(path))
+
+
+def test_sources_cover_the_serving_benchmark():
+    """scripts/bench_serving.py as a module of the port run with python
+    -m, naming its counterpart, on the card by default."""
+    covered = {str(p.relative_to(ROOT)) for p in SOURCES}
+    path = ROOT / "ladder_tpu_torch" / "bench_serving.py"
+    assert str(path.relative_to(ROOT)) in covered
+    text = path.read_text()
+    assert 'if __name__ == "__main__":' in text
+    assert '"--device", default="cuda"' in text
+    assert (ROOT / "scripts" / "bench_serving.py").is_file()
+    assert "scripts/bench_serving.py" in text  # names its counterpart
+    assert not {"scripts", "ladder_tpu", "jax"}.intersection(
+        _imported_roots(path))

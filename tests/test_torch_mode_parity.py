@@ -191,3 +191,25 @@ def test_sweep_defaults_are_the_shell_scripts(tmp_path):
     assert json.loads(args.override) == {
         "sg_pretraining": 3, "accurate_fit": 3, "synthetic_n_val": 512}
     assert port.ATTEMPTS == 3
+
+
+
+def test_sweep_writes_what_combine_reads(tmp_path, monkeypatch):
+    """sweep's six records (each the port's CelebA record at its seed) are
+    what combine needs: every key of KEYS with both modes at seeds 0 1 2,
+    in the shell script's order."""
+    base = json.loads((ROOT / "QUALITY_torch_celeba.json").read_text())
+
+    def fake_run(cmd, cwd, env, stdout, stderr, timeout):
+        out = cmd[cmd.index("--out") + 1]
+        seed = int(cmd[cmd.index("--seed") + 1])
+        Path(out).write_text(json.dumps(dict(base, seed=seed)))
+        return subprocess.CompletedProcess(cmd, 0)
+
+    monkeypatch.setattr(port.subprocess, "run", fake_run)
+    assert port.sweep(_args(tmp_path), attempts=1) == 0
+    rec = port.combined(str(tmp_path))
+    assert set(rec["metrics"]) == set(port.KEYS)
+    for key, m in rec["metrics"].items():
+        assert m["mode1"]["values"] == m["mode2"]["values"] == [base[key]] * 3
+    assert rec["what"].endswith("seeds 0,1,2")
