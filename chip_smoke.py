@@ -48,8 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Training the pretrained mnist_digit model (demo/mnist_digit_config.json:
    h=256, code 16, t in 2-D, inner VAE 5x512, 50 mixtures, 100 MC samples,
    batch 256) through ``python -m ladder_tpu_torch.train``'s main, in this
-   process, on 20,000 + 4,096 synthetic MNIST images (a third of MNIST's
-   training split, to keep the script's time): 2 epochs from the
+   process, on 8,192 + 4,096 synthetic MNIST images (cut from MNIST's
+   training split to keep the script's time): 2 epochs from the
    pretrained checkpoint groups, then a rerun with
    num_epochs 3 that resumes from the full train state. Checks: the first
    step against the CPU's at batch 8, finite curves, the result npz over
@@ -80,7 +80,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    run() on the card: the pretrained mnist_digit model (linear, then
    random init from the fitted GM) and the pretrained CelebA-128 model
    (linear init, on phase 6's TFRecords), each with the accurate GM fit,
-   the two validation embeddings (images 0 and 32), 500 Adam iterations
+   the two validation embeddings (images 0 and 32), 250 Adam iterations
    over 8 points and the SLP and SP strips decoded. Checks: finite
    histories, the linear init's path beating the straight line on neg-LL
    and the objective, the same optimisation on the CPU from the card's
@@ -126,7 +126,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 512), then the same config in one process: finite curves,
    bitwise ranks, the launches, the first-step loss within
    SCALED_LOSS_RTOL. (3) The pretrained mnist_digit model as 2 ranks x
-   128 on 8,192 images for 1 epoch, then resumed to 2: every artifact
+   128 on 4,096 images for 1 epoch, then resumed to 2: every artifact
    written once (the files of a one-process run, one summary line per
    epoch), the result keys, the ranks' GM fits and validation equal.
    Logs per run and rank the step time, the gradient all-reduce's bytes,
@@ -143,7 +143,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    replicated total; every rank's launches of the five kernels against
    its epoch's count; the lead's checkpoint files byte for byte a
    one-process save of the same state. (2) The pretrained mnist_digit
-   model on [2, 2] (4 gloo ranks x 64) on 8,192 images, 1 epoch then
+   model on [2, 2] (4 gloo ranks x 64) on 4,096 images, 1 epoch then
    resumed to 2 (phase 9's checks of the artifacts, the resume and the
    launches). (3) The engine on the pretrained CelebA model with
    mesh_devices=1 against 0: every path bitwise, the same K1 launches;
@@ -199,8 +199,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    defaults (bf16 mode 2, 8 traced steps after 3) and in float32 mode 1
    (4 steps), each top-15 kernel table printed; ``conv_breakdown`` in bf16
    and float32; ``bench_input_pipeline`` with ``--step-ms`` the bf16
-   profile's step wall; ``stream_trace`` at its defaults (6 + 40 streamed
-   steps), its trace read back by ``profile_step``'s report. Checks: K1-K5
+   profile's step wall; ``stream_trace`` over 6 + STREAM_STEPS streamed
+   steps, its trace read back by ``profile_step``'s report. Checks: K1-K5
    in each trace at ``expected_step_launches`` a step and counted by the
    wrappers at it for every step taken, all 14 conv rows finite and
    positive, the input record's keys and rates, the stream record's keys
@@ -248,9 +248,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = "demo/celeba_config.json"
 MNIST_CONFIG = "demo/mnist_digit_config.json"
 # Phase 5: the pretrained mnist_digit model at its published widths on
-# 20,000 + 4,096 synthetic images (cut from MNIST's 60,000 + 10,000 when
-# phase 9 came: 78 steps an epoch), 2 epochs, then resumed to 3.
-MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 20000,
+# 8,192 + 4,096 synthetic images (cut from MNIST's 60,000 + 10,000: 20,000
+# when phase 9 came, 8,192 when the whole script outgrew its time on a
+# slower host: 32 steps an epoch), 2 epochs, then resumed to 3.
+MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 8192,
                    "synthetic_n_test": 4096, "num_epochs": 2,
                    "sg_pretraining": 1, "accurate_fit": 2,
                    "enable_plots": 0}
@@ -277,10 +278,11 @@ FROZEN_ROW_MAX_ABS = 1e-4
 CELEBA_GM_WEIGHT_SUM_TOL = 1e-5
 # Phase 7: SLP interpolation (python -m ladder_tpu_torch.interpolate's run)
 # of the pretrained mnist_digit and CelebA-128 models at their published
-# widths, the notebook's path (validation images 0 -> 32, 8 steps, 500
-# Adam iterations), on the demo configs' synthetic data.
+# widths, the notebook's path (validation images 0 -> 32, 8 steps; its
+# 500 Adam iterations cut to 250 to keep the script's time, on the card
+# and in the CPU replay), on the demo configs' synthetic data.
 INTERP_ARGS = ("--idx-start", "0", "--idx-end", "32", "--n-step", "8",
-               "--n-iter", "500")
+               "--n-iter", "250")
 INTERP_MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 8192,
                           "synthetic_n_test": 2048}
 INTERP_CELEBA_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 1024,
@@ -1181,7 +1183,8 @@ def drive_serving(cfg, device):
         raise AssertionError("HTTP reconstruction differs from the engine's")
     launches = counter.launches
 
-    torch.set_num_threads(os.cpu_count() or 1)
+    if device != "cpu":  # the card's host: the CPU engine takes every core
+        torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     cpu = InferenceEngine(cfg, device="cpu", serve_batch=SERVE_BATCH,
                           buckets=(1, 8))
@@ -3044,10 +3047,10 @@ SCALED_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 2048,
 # below 1e-2 (phase 6 holds bf16 against float32 within 5e-2)
 SCALED_LOSS_RTOL = 1e-2
 # (3) the pretrained mnist_digit model (demo/mnist_digit_config.json), 2
-# ranks x 128 rows on 8,192 synthetic images, 1 epoch then resumed to 2; plots
+# ranks x 128 rows on 4,096 synthetic images, 1 epoch then resumed to 2; plots
 # off (the card's machine has no matplotlib: tests/test_torch_multiprocess.py
 # runs the lead-only plots on the CPU)
-PARALLEL_MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 8192,
+PARALLEL_MNIST_OVERRIDES = {"synthetic_data": 1, "synthetic_n_train": 4096,
                             "synthetic_n_test": 2048, "num_epochs": 1,
                             "sg_pretraining": 1, "accurate_fit": 2,
                             "enable_plots": 0, "mesh_shape": [2]}
@@ -3616,7 +3619,7 @@ TP_RANKS = 2
 # total (ladder_tpu's own bound, tests/test_tensor_parallel.py:243)
 TP_MEMORY_SHARE = 0.55
 # (2) the pretrained mnist_digit model on mesh_shape [2, 2]: 4 gloo ranks x
-# 64 rows on 8,192 synthetic images, 1 epoch, then resumed to 2; plots off
+# 64 rows on 4,096 synthetic images, 1 epoch, then resumed to 2; plots off
 TP_MNIST_OVERRIDES = dict(PARALLEL_MNIST_OVERRIDES, mesh_shape=[2, 2])
 TP_MNIST_RANKS = 4
 SERVE_MESH_GENERATE = 64
@@ -4840,6 +4843,9 @@ KERNEL_TRACE_NAMES = {
 PROFILE_RUNS = (("bf16 mode 2", ()),
                 ("float32 mode 1", ("--dtype", "float32", "--fused", "1",
                                     "--steps", "4")))
+# stream_trace's streamed steps (40 at its defaults; 20 keep the script's
+# time)
+STREAM_STEPS = 20
 STREAM_KEYS = ("what", "batch", "steps", "batch_mb", "wall_step_ms",
                "device_busy_ms", "device_idle_ms", "transfer_ms", "link_mbs",
                "serial_bound_ms", "overlap_bound_ms", "overlap_efficiency",
@@ -4956,7 +4962,7 @@ def drive_profilers(work):
 
     log("  stream_trace:")
     argv = ["--out", os.path.join(work, "STREAM_torch.json"), "--logdir",
-            os.path.join(work, "stream")]
+            os.path.join(work, "stream"), "--steps", str(STREAM_STEPS)]
     sargs = stream_trace.parse_args(argv)
     _, got = counted("stream_trace", lambda: stream_trace.main(argv))
     with open(sargs.out) as f:

@@ -16,6 +16,7 @@ from ladder_tpu.utils import config as jconfig
 from ladder_tpu_torch.utils import checkpoint as tck
 from ladder_tpu_torch.utils import config as tconfig
 from ladder_tpu_torch.utils.weights import flax_to_torch, torch_to_flax
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CHECKPOINTS = [f"{fam}/{group}-model.msgpack"

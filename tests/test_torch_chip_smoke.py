@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 
 def test_exits_nonzero_without_cuda(monkeypatch, capsys):

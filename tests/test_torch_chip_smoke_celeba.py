@@ -6,6 +6,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 from tests.test_torch_serving import tiny_celeba
 from tests.torch_chip_smoke_helpers import _celeba_groups
 

@@ -2,6 +2,7 @@
 the CPU at a tiny width, with its configs and launch counts."""
 
 import chip_smoke
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 from tests.torch_chip_smoke_helpers import SMALL_CELEBA, _demo_cfg, _groups
 
 
@@ -105,7 +106,7 @@ def test_interp_phase_configs_and_launch_count():
     assert (celeba["num_hidden_units"], celeba["code_size"],
             celeba["representation_size"], celeba["n_mixtures"],
             celeba["batch_size"]) == (512, 256, 32, 50, 64)
-    assert chip_smoke.INTERP_ARGS[-1] == "500"
+    assert chip_smoke.INTERP_ARGS[-1] == "250"
     # two embeddings (a decode of z and of t each) and two strips, four
     # norm-chain stages a decode; mnist decoders launch none
     assert chip_smoke.expected_interp_launches(celeba, 2, 2, "cuda") == {

@@ -4,6 +4,7 @@ tiny data size, with its config and launch count."""
 import types
 
 import chip_smoke
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 
 def test_mnist_phase_rehearsal_on_cpu(capsys):
@@ -44,7 +45,7 @@ def test_mnist_phase_config_and_launch_count():
             cfg["n_layers_inner_VAE"], cfg["n_mixtures"],
             cfg["n_MC_samples"], cfg["batch_size"]) == (
         256, 16, 2, 512, 5, 50, 100, 256)
-    assert (cfg["synthetic_n_train"], cfg["synthetic_n_test"]) == (20000,
+    assert (cfg["synthetic_n_train"], cfg["synthetic_n_test"]) == (8192,
                                                                     4096)
     # the updates of each group since the step counts of t_before
     trainer = types.SimpleNamespace(state={"opt": {

@@ -1,6 +1,7 @@
 """chip_smoke.py's torchrun phase (9) rehearsed on the CPU at a tiny width."""
 
 import chip_smoke
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 from tests.torch_chip_smoke_helpers import _celeba_groups
 
 

@@ -10,6 +10,7 @@ import pytest
 
 import chip_smoke
 from ladder_tpu_torch import profile_step, stream_trace
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 # kernel names as a trace shows them, with PyTorch's and our helpers'
 # kernels beside them

@@ -6,6 +6,7 @@ import json
 import numpy as np
 
 import chip_smoke
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 from tests.torch_chip_smoke_helpers import SMALL_CELEBA, _demo_cfg, _groups
 
 

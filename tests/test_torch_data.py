@@ -13,6 +13,7 @@ import torch
 from ladder_tpu.data import mnist as jdata
 from ladder_tpu_torch.data import mnist as tdata
 from tests.conftest import make_config
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 
 def _same(a, b):

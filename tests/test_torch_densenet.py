@@ -21,6 +21,7 @@ from ladder_tpu_torch.utils.weights import (
     flax_variables_to_torch,
     torch_to_flax_variables,
 )
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-5
 # (name, jax module, port module, input NHWC, output NHWC)

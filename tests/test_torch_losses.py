@@ -4,6 +4,8 @@ through the bridge, the same batch, GM and noise. ladder_tpu draws its noise
 from jax.random; here its sample_diag_gaussian is replaced by a queue of
 numpy draws, which the port receives as ``noise``."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -25,16 +27,26 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 B, L = 4, 6
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """Two torch threads for these CPU-heavy tests: with every core taken in
-    each of several test workers, timing-sensitive tests that run beside
-    them (tests/test_native_reader.py races native threads against Python)
-    lose their race."""
-    before = torch.get_num_threads()
+    """Two torch threads for these CPU-heavy tests, their module's fixtures
+    included (a module-scoped autouse fixture is set up before the others
+    of its scope), and for the processes they start (OMP_NUM_THREADS).
+    With every core taken in each of several test workers, a torch with a
+    thread a core spins its threads against the other workers' (an 8-core
+    host beside eight busy processes ran tests/test_torch_chip_smoke_celeba
+    .py's phase-6 rehearsal in 272 s at 8 threads, in 16 s at 2), and
+    timing-sensitive tests that run beside them (tests/test_native_reader.py
+    races native threads against Python) lose their race."""
+    before, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(2)
+    os.environ["OMP_NUM_THREADS"] = "2"
     yield
     torch.set_num_threads(before)
+    if env is None:
+        del os.environ["OMP_NUM_THREADS"]
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
 
 
 def small_celeba(prior="ours", **kw):

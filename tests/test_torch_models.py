@@ -17,6 +17,7 @@ from ladder_tpu_torch.models import inner_vae as tinner
 from ladder_tpu_torch.models.builder import LadderModel
 from ladder_tpu_torch.ops import norm_chain as nc
 from ladder_tpu_torch.utils.weights import flax_to_torch
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 H, CODE = 16, 8

@@ -29,6 +29,7 @@ import pytest
 
 from ladder_tpu_torch import train as ttrain
 from tests.conftest import make_config
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 N_TRAIN, BATCH = 256, 64

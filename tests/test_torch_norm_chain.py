@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 import ladder_tpu.ops.pallas_kernels as pk
 from ladder_tpu_torch.ops import norm_chain as nc
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 SHAPES = [(2, 2, 2, 16), (2, 8, 8, 16), (2, 4, 8, 8)]  # NHWC, as in JAX
 

@@ -15,6 +15,7 @@ from ladder_tpu_torch.models.layers import Conv
 from ladder_tpu_torch.ops import distributions as td
 from ladder_tpu_torch.ops import image as ti
 from ladder_tpu_torch.utils.weights import flax_to_torch
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -16,6 +16,7 @@ from ladder_tpu.training import schedules as jsched
 from ladder_tpu_torch.ops import adam
 from ladder_tpu_torch.training import optim, schedules
 from tests.conftest import make_config
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-7)  # tests/test_pallas.py's, for the TPU kernel
 SHAPES = {"conv": (3, 3, 16, 128), "dense": (64, 96), "bias": (77,),

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import ladder_tpu.ops.pallas_output as po
 from ladder_tpu_torch.ops import output_stage as ost
 from ladder_tpu_torch.utils.weights import flax_to_torch, torch_to_flax
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

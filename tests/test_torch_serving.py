@@ -25,6 +25,7 @@ from ladder_tpu.utils.checkpoint import CheckpointManager, save_gm_prior_info
 from ladder_tpu_torch import serve as tserve
 from ladder_tpu_torch.ops import norm_chain as nc
 from ladder_tpu_torch.serving import Batcher, InferenceEngine
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)

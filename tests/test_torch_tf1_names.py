@@ -11,6 +11,7 @@ from ladder_tpu.utils.tf1_import import reference_name_map as jmap
 from ladder_tpu_torch.models.builder import make_model
 from ladder_tpu_torch.utils.tf1_import import reference_name_map
 from tests.conftest import make_config
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 FAMILIES = {
     "mnist_digit": dict(num_hidden_units=64),

@@ -9,6 +9,7 @@ import pytest
 from ladder_tpu.data import tfrecord as jtf
 from ladder_tpu_torch import runtime
 from ladder_tpu_torch.data import tfrecord as ttf
+from tests.test_torch_losses import few_threads  # noqa: F401  (autouse)
 
 SHAPE = (32, 32, 3)
 
