@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from ladder_tpu_torch.utils.profiling import span
+
 LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -41,10 +43,11 @@ def diag_gaussian_logpdf(x, mean, std):
 def diag_mixture_logpdf(x, weights, means, stds):
     """log p(x) under a mixture of diagonal Gaussians (the vampPrior's
     pseudo-input mixture). means, stds: [K,D]; x: [..., D]."""
-    comp = torch.stack([diag_gaussian_logpdf(x, means[k], stds[k])
-                        for k in range(means.shape[0])])          # [K, ...]
-    logw = torch.log(weights).reshape((-1,) + (1,) * (comp.dim() - 1))
-    return torch.logsumexp(comp + logw, dim=0)
+    with span("mixture.logpdf"):
+        comp = torch.stack([diag_gaussian_logpdf(x, means[k], stds[k])
+                            for k in range(means.shape[0])])      # [K, ...]
+        logw = torch.log(weights).reshape((-1,) + (1,) * (comp.dim() - 1))
+        return torch.logsumexp(comp + logw, dim=0)
 
 
 def mvn_full_logpdf(x, mean, chol):
@@ -74,12 +77,13 @@ def gmm_logpdf(x, weights, means, chols):
     log w_k + log N_k(x). Zero-weight components are masked to -inf.
 
     x: [..., D]; weights: [K]; means: [K,D]; chols: [K,D,D]."""
-    comp = torch.stack([mvn_full_logpdf(x, means[k], chols[k])
-                        for k in range(means.shape[0])])          # [K, ...]
-    logw = torch.where(weights > 0, torch.log(weights.clamp_min(1e-38)),
-                       torch.full_like(weights, -math.inf))
-    logw = logw.reshape((-1,) + (1,) * (comp.dim() - 1))
-    return torch.logsumexp(comp + logw, dim=0)
+    with span("mixture.logpdf"):
+        comp = torch.stack([mvn_full_logpdf(x, means[k], chols[k])
+                            for k in range(means.shape[0])])      # [K, ...]
+        logw = torch.where(weights > 0, torch.log(weights.clamp_min(1e-38)),
+                           torch.full_like(weights, -math.inf))
+        logw = logw.reshape((-1,) + (1,) * (comp.dim() - 1))
+        return torch.logsumexp(comp + logw, dim=0)
 
 
 def sample_gmm_from_noise(comps, eps, means, chols):

@@ -17,6 +17,13 @@ The decoder's four style stages run the hand-written norm-chain kernel on
 a CUDA device (ops/norm_chain.py). serving/export.py writes the paths as
 ``torch.export`` graphs.
 
+Spans (utils/profiling.py, recorded while a profiler runs): a batched
+path's ``engine.call`` (path, rows, bucket) holds ``engine.pad``,
+``engine.upload`` (the host rows to the device), ``engine.launch``
+(``run_path``) and ``engine.download`` (the answer to the host, which
+waits for the device); the counters ``engine.rows`` and
+``engine.pad_rows`` count the real and the padding rows of each call.
+
 Scale-out (``mesh_devices=N``, ``ladder_tpu``'s 1-D data mesh with
 replicated parameters): one replica of the model on each of N devices
 (cuda:0..N-1, or the ``devices`` given). Every path pads to its bucket as
@@ -60,6 +67,7 @@ from ladder_tpu_torch.ops.distributions import (
 from ladder_tpu_torch.serving.bn_freeze import load_bn_stats
 from ladder_tpu_torch.utils.checkpoint import CheckpointManager
 from ladder_tpu_torch.utils.device import float32_exact, resolve_device
+from ladder_tpu_torch.utils.profiling import count, span
 
 
 def _pad_to(x, n):
@@ -284,11 +292,13 @@ class InferenceEngine:
         decoder's mean code, then the outer decoder)."""
         model = self._replicas[replica]
         device = next(model.parameters()).device
-        if name in ("encode", "reconstruct", "represent"):
-            x = self._images(a, device)
-        else:
-            x = torch.tensor(a, device=device)
-        return run_path(model, name, x)
+        with span("engine.upload"):
+            if name in ("encode", "reconstruct", "represent"):
+                x = self._images(a, device)
+            else:
+                x = torch.tensor(a, device=device)
+        with span("engine.launch"):
+            return run_path(model, name, x)
 
     def _on_replicas(self, fn, parts):
         """fn(replica, part) for each replica in its own thread, with the
@@ -316,7 +326,9 @@ class InferenceEngine:
         """One padded batch through a path: on the one device, or split
         across the mesh's replicas."""
         if self._pool is None:
-            return _to_numpy(self._path(name, a), n)
+            out = self._path(name, a)
+            with span("engine.download"):
+                return _to_numpy(out, n)
         parts = np.split(a, len(self.mesh))
         out = _concat(self._on_replicas(
             lambda i, part: self._path(name, part, i), parts))
@@ -383,8 +395,13 @@ class InferenceEngine:
                             for i in range(0, n, self.serve_batch)])
         b = self._bucket_for(n)
         t0 = time.perf_counter()
-        with self._device_call():
-            out = self._launch(name, _pad_to(x, b), n)  # copies synchronise
+        with span("engine.call", path=name, rows=n, bucket=b):
+            count("engine.rows", n)
+            count("engine.pad_rows", b - n)
+            with span("engine.pad"):
+                a = _pad_to(x, b)
+            with self._device_call():
+                out = self._launch(name, a, n)  # copies synchronise
         dt = time.perf_counter() - t0
         for key in (name, f"{name}@b{b}"):
             ema = self._latency.get(key)

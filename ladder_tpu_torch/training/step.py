@@ -68,6 +68,7 @@ from ladder_tpu_torch.training.losses import (
 )
 from ladder_tpu_torch.training.optim import adam_init, adam_update
 from ladder_tpu_torch.utils.device import float32_exact, resolve_device
+from ladder_tpu_torch.utils.profiling import span
 from ladder_tpu_torch.utils.weights import (
     flax_state_to_torch,
     torch_state_to_flax,
@@ -293,12 +294,19 @@ def make_train_step(model, mesh=None):
         out = {}
 
         def grad_step(name, lr, select):
-            _gather(state)
-            params = group_params(model, groups[name])
-            loss_ae, metrics = compute_loss(model, x, gm=gm, flags=flags,
-                                            noise=feed.next(x), mesh=mesh)
-            grads = _gradients(select(loss_ae, metrics), params, mesh)
-            _update_group(cfg, state, name, grads, params, lr, mesh)
+            sub = f"train.step.{name}"
+            with span(sub):
+                _gather(state)
+                params = group_params(model, groups[name])
+                with span(sub + ".forward"):
+                    loss_ae, metrics = compute_loss(
+                        model, x, gm=gm, flags=flags, noise=feed.next(x),
+                        mesh=mesh)
+                with span(sub + ".backward"):
+                    grads = _gradients(select(loss_ae, metrics), params,
+                                       mesh)
+                with span(sub + ".update"):
+                    _update_group(cfg, state, name, grads, params, lr, mesh)
             return metrics
 
         with _exact(model), _step_params(state):
@@ -358,7 +366,8 @@ def _make_single_pass_step(model, mesh=None):
         loss_prior, on the same noise and at the same parameter point."""
         model = state["model"]
         x = _images(batch, next(model.parameters()).device)
-        draws = _NoiseFeed(model, generator, noise, mesh).next(x)
+        feed = _NoiseFeed(model, generator, noise, mesh)
+        draws = None
         names = active_groups(do_prior)
         prior_names = [n for n in names if n in ("prior", "inner_sigma")]
         main_names = names
@@ -366,11 +375,16 @@ def _make_single_pass_step(model, mesh=None):
             main_names = [n for n in names if n not in prior_names]
 
         def group_gradients(group_names, select):
+            nonlocal draws
             params = {n: group_params(model, groups[n]) for n in group_names}
             merged = {k: p for ps in params.values() for k, p in ps.items()}
-            loss_ae, metrics = compute_loss(model, x, gm=gm, flags=flags,
-                                            noise=draws, mesh=mesh)
-            grads = _gradients(select(loss_ae, metrics), merged, mesh)
+            with span("train.step.forward"):
+                if draws is None:  # one draw serves every pass
+                    draws = feed.next(x)
+                loss_ae, metrics = compute_loss(model, x, gm=gm, flags=flags,
+                                                noise=draws, mesh=mesh)
+            with span("train.step.backward"):
+                grads = _gradients(select(loss_ae, metrics), merged, mesh)
             return params, grads, metrics
 
         with _exact(model), _step_params(state):
@@ -382,10 +396,12 @@ def _make_single_pass_step(model, mesh=None):
             if sg_overlap and prior_names:
                 updates.append(group_gradients(
                     prior_names, lambda L, met: met["loss_prior"]))
-            for params, grads, _ in updates:
-                for name, ps in params.items():
-                    _update_group(cfg, state, name, {k: grads[k] for k in ps},
-                                  ps, lrs[name], mesh)
+            with span("train.step.update"):
+                for params, grads, _ in updates:
+                    for name, ps in params.items():
+                        _update_group(cfg, state, name,
+                                      {k: grads[k] for k in ps}, ps,
+                                      lrs[name], mesh)
 
         out = {}
         small = _small(metrics)

@@ -125,7 +125,7 @@ from ladder_tpu_torch.utils.checkpoint import (
 from ladder_tpu_torch.utils.device import float32_exact, resolve_device
 from ladder_tpu_torch.utils.metrics import BUFFER_NAMES, MetricsRecorder
 from ladder_tpu_torch.utils import plotting
-from ladder_tpu_torch.utils.profiling import StepTimer, trace
+from ladder_tpu_torch.utils.profiling import StepTimer, span, trace
 
 RNG_KEY = "torch_rng"
 
@@ -398,22 +398,27 @@ class JointTrainer:
         if self.mesh is not None:
             self.mesh.barrier()
 
-    def _run_steps(self, timer, gm, flags, lrs, do_prior, sg_ov, sync_each,
-                   prof=None):
+    def _run_steps(self, timer, gm, flags, lrs, do_prior, sg_ov, sync_each):
         """The epoch's train steps; returns each step's metrics, still on
-        the device. ``prof``: the epoch's trace, which marks each step."""
+        the device. Spans (utils/profiling.py): ``train.batch_wait`` takes
+        the next batch to the device, ``train.step`` is a step's call."""
         outs = []
-        for batch in self.train_batches():
+        batches = iter(self.train_batches())
+        while True:
+            with span("train.batch_wait", step=len(outs)):
+                batch = next(batches, None)
+                if batch is not None:
+                    batch = self._place(batch)
+            if batch is None:
+                return outs
             timer.start()
-            with (prof.step_range(len(outs)) if prof is not None
-                  else contextlib.nullcontext()):
+            with span("train.step", step=len(outs)):
                 self.state, out = self.train_step(
-                    self.state, self._place(batch), self.generator, gm,
-                    flags, lrs, do_prior, sg_overlap=sg_ov)
+                    self.state, batch, self.generator, gm, flags, lrs,
+                    do_prior, sg_overlap=sg_ov)
             timer.stop(sync_on=out if sync_each else None)
             outs.append(out)
             self.mid_epoch_hook(len(outs) - 1)
-        return outs
 
     def train_epoch(self):
         cfg = self.config
@@ -437,7 +442,7 @@ class JointTrainer:
         timer.wall_start()
         with trace(profile_dir) as prof:
             outs = self._run_steps(timer, gm, flags, lrs, do_prior, sg_ov,
-                                   sync_each, prof)
+                                   sync_each)
             self._sync()
         timer.wall_stop()
         if prof is not None:

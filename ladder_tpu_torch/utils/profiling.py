@@ -10,8 +10,9 @@
   * trace(profile_dir): ``torch.profiler`` around a block, CPU and (when
     there is a card) CUDA activity, written as a Chrome trace into
     profile_dir; a no-op when profile_dir is falsy (config['profile_dir']
-    arms it for the first epoch). The block marks its steps
-    (``Trace.step_range``), and the trace is summarised over the steps
+    arms it for the first epoch). The block marks its steps (the trainer's
+    loop with its ``train.step`` span, the profilers with
+    ``Trace.step_range``), and the trace is summarised over the steps
     after the first (``Trace.summary``, written beside the trace as
     summary.json): the window's wall time, the device's busy time (the
     union of its kernels and copies) and idle share, the device time of
@@ -21,18 +22,34 @@
     trace.json under a directory, and its complete events in the form
     ``summarise`` reads (``trace`` summarises the file it wrote with them,
     and the profilers of the port read traces back with them).
+  * span(name, **attrs) and count(name, n=1): spans and counters inside the
+    program, recorded while a torch profiler runs anywhere in the process
+    (``trace``, ``profile_step``, a benchmark's traced window) and read back
+    with ``recorded()``. Off, each costs one read of the profiler's
+    process-wide flag: no clock, no profiler range, nothing kept. On, a
+    span keeps its name, its parent (a stack per thread), its thread, its
+    start and end on the realtime clock (the clock of a Chrome trace's
+    ``ts`` + ``baseTimeNanoseconds``) and its attributes; on a thread the
+    profiler records it is also a ``record_function`` range, so the trace
+    carries it and names the device's idle gaps with it. ``trace`` clears
+    the record when it starts and writes the spans of the threads the
+    profiler did not record into its trace.json, a lane for each thread.
 """
 
 from __future__ import annotations
 
 import contextlib
 import glob
+import itertools
 import json
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def synchronize(tree):
@@ -124,7 +141,170 @@ class StepTimer:
         return s
 
 
+# ---- spans and counters inside the program -----------------------------
+
+MAX_SPANS = 1 << 18
+_OFF = contextlib.nullcontext()
+
+
+class SpanRecord(NamedTuple):
+    """A finished span; times in ns on the realtime clock. ``thread`` is
+    the native id of the thread it ran on, None for a span that began in
+    one thread and ended in another (``record``); ``traced``: it was also a
+    profiler range of its thread."""
+
+    id: int
+    parent: int | None
+    name: str
+    thread: int | None
+    start_ns: int
+    end_ns: int
+    attrs: dict
+    traced: bool
+
+
+class Recorder:
+    """The spans (at most ``max_spans``; the rest are counted in
+    ``dropped``) and the counters recorded since the last clear()."""
+
+    def __init__(self):
+        self.max_spans = MAX_SPANS
+        self.threads = {}  # native thread id -> thread name
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self.clear()
+
+    def clear(self):
+        with self._lock:
+            self._spans, self._counters, self._dropped = [], {}, 0
+
+    def thread(self):
+        """This thread's stack of open span ids, and its native id."""
+        local = self._local
+        if not hasattr(local, "stack"):
+            local.stack, local.tid = [], threading.get_native_id()
+            self.threads[local.tid] = threading.current_thread().name
+        return local.stack, local.tid
+
+    def next_id(self):
+        return next(self._ids)
+
+    def add(self, record):
+        with self._lock:
+            if len(self._spans) < self.max_spans:
+                self._spans.append(record)
+            else:
+                self._dropped += 1
+
+    def count(self, name, n):
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def recorded(self):
+        with self._lock:
+            return dict(spans=list(self._spans), counters=dict(self._counters),
+                        dropped=self._dropped)
+
+
+# one for the process, as the profiler that arms it is
+RECORDER = Recorder()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "start", "range")
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack, _ = RECORDER.thread()
+        self.parent = stack[-1] if stack else None
+        self.id = RECORDER.next_id()
+        stack.append(self.id)
+        self.range = None
+        self.start = time.time_ns()
+        if torch.autograd._profiler_enabled():  # the profiler records us
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        stack, tid = RECORDER.thread()
+        stack.pop()
+        RECORDER.add(SpanRecord(self.id, self.parent, self.name, tid,
+                                self.start, end, self.attrs,
+                                self.range is not None))
+        return False
+
+
+def span(name, **attrs):
+    """A span around the block while armed, else a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, attrs)
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name`` while armed."""
+    if _autograd_profiler._is_profiler_enabled:
+        RECORDER.count(name, n)
+
+
+def stamp():
+    """The realtime clock in ns while armed, else None: the start of a
+    span that ends in another thread (``record``)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    return time.time_ns()
+
+
+def record(name, start_ns, **attrs):
+    """A span from ``start_ns`` (a ``stamp()``, perhaps of another thread)
+    to now, with no parent, thread or profiler range; nothing when
+    ``start_ns`` is None."""
+    if start_ns is not None:
+        RECORDER.add(SpanRecord(RECORDER.next_id(), None, name, None,
+                                start_ns, time.time_ns(), attrs, False))
+
+
+def recorded():
+    """{'spans': [SpanRecord], 'counters': {name: n}, 'dropped': n} since
+    the last clear (``trace`` clears when it starts)."""
+    return RECORDER.recorded()
+
+
+def _add_untraced_spans(data, spans, threads):
+    """Add to a Chrome trace (its parsed JSON) the spans the profiler did
+    not record, as complete events on the trace's clock: a lane for each
+    thread, and one for each name of the spans that crossed threads.
+    Returns how many it added."""
+    spans = [s for s in spans if not s.traced]
+    base = int(data.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    lanes = {}
+    spare = itertools.count(max(threads, default=0) + 1)
+    events = data["traceEvents"]
+    for s in spans:
+        lane = s.thread if s.thread is not None else s.name
+        if lane not in lanes:
+            lanes[lane] = s.thread if s.thread is not None else next(spare)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": lanes[lane],
+                           "args": {"name": threads.get(lane, lane)}})
+        events.append({"ph": "X", "cat": "ladder_span", "name": s.name,
+                       "pid": pid, "tid": lanes[lane],
+                       "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": dict(s.attrs, id=s.id, parent=s.parent)})
+    return len(spans)
+
+
 STEP_MARK = "ladder_step#"
+STEP_SPAN = "train.step"
 _COLLECTIVE_WORDS = ("all_reduce", "allreduce", "broadcast", "all_gather",
                      "allgather", "barrier")
 
@@ -141,12 +321,16 @@ def _union_us(intervals):
     return total
 
 
+def _is_step(name):
+    return name == STEP_SPAN or name.startswith(STEP_MARK)
+
+
 def summarise(events):
     """The summary of ``Trace`` from a profile's events, each (name, is
-    device, start us, end us), over the steps after the first."""
-    steps = [(a, b) for name, dev, a, b in events
-             if not dev and name.startswith(STEP_MARK)
-             and name != STEP_MARK + "0"]
+    device, start us, end us), over the steps after the first. A step is a
+    trainer loop's ``train.step`` span or a ``Trace.step_range``."""
+    steps = sorted((a, b) for name, dev, a, b in events
+                   if not dev and _is_step(name))[1:]
     if not steps:
         return None
     lo = min(a for a, _ in steps)
@@ -154,7 +338,7 @@ def summarise(events):
     # the device's kernels and copies (not the device-side spans of the
     # step marks, which cover each step's work whole)
     device = [(max(a, lo), b) for name, dev, a, b in events
-              if dev and b > lo and not name.startswith(STEP_MARK)]
+              if dev and b > lo and not _is_step(name)]
     if device:
         hi = max(hi, max(b for _, b in device))
     busy = _union_us(device)
@@ -206,15 +390,18 @@ class Trace:
 
     @staticmethod
     def step_range(k):
-        """A profiler range around step k of the block."""
+        """A profiler range around step k of a block that runs its own
+        steps (the trainer's loop marks them with its ``train.step``
+        span)."""
         return torch.profiler.record_function(f"{STEP_MARK}{k}")
 
 
 @contextlib.contextmanager
 def trace(profile_dir=None):
-    """torch.profiler trace of the block into profile_dir/trace.json;
-    yields a Trace (None when profile_dir is falsy) whose summary is set
-    when the block ends."""
+    """torch.profiler trace of the block into profile_dir/trace.json,
+    with the spans of the threads the profiler did not record; yields a
+    Trace (None when profile_dir is falsy) whose summary is set when the
+    block ends."""
     if not profile_dir:
         yield None
         return
@@ -225,6 +412,7 @@ def trace(profile_dir=None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     out = Trace()
+    RECORDER.clear()
     with profile(activities=activities) as prof:
         yield out
     path = os.path.join(profile_dir, "trace.json")
@@ -232,7 +420,11 @@ def trace(profile_dir=None):
     # read back from the file: building prof.events() costs ten times as
     # much (~70 us an event) as writing and parsing the JSON
     with open(path) as f:
-        out.summary = summarise(chrome_events(json.load(f)["traceEvents"]))
+        data = json.load(f)
+    if _add_untraced_spans(data, recorded()["spans"], RECORDER.threads):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    out.summary = summarise(chrome_events(data["traceEvents"]))
     with open(os.path.join(profile_dir, "summary.json"), "w") as f:
         json.dump(out.summary, f)
     print(f"profiler trace written to {path}")
